@@ -1,0 +1,8 @@
+"""RDF-h in PyTorch and CUDA for an NVIDIA H100.
+
+A port of the JAX package ``repro``, module for module: ``kernels`` holds
+the hand-written CUDA kernels and their plain PyTorch versions, ``core``
+the engine, ``data`` the generators, ``obs`` tracing and ``launch`` the
+query CLI.  The engine runs on ``cuda`` unless the caller asks for
+``device="cpu"``.
+"""
