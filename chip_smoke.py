@@ -16,10 +16,22 @@ exits non-zero without its final line:
             events, host launch gaps included (call_ms)
   main      12 RDF-h queries (the last 4 with a connection edge) through
             Dataset.engine("rdf_h") -> Engine.execute on the card, cold
-            then warm; every kernel must have launched during this phase,
-            and every result must equal the same engine's on the CPU
+            then warm; each of the four kernels of this path must have
+            launched during this phase, and results must equal the same
+            engine's on the CPU
+  bloom     6 queries with exact keywords through SPath(NI2) with the
+            bloom prefilter (EngineConfig(check_policy="always",
+            use_bloom=True)), cold then warm: bitmask_contains must have
+            launched, and the result sets must equal those of the card's
+            spath_ni2 engine without the prefilter
+  conn      8,192 endpoint pairs of the main phase's connection edges
+            (half from their result rows, half random) through
+            connectivity_mask_vectorized on the card, directed and
+            bidirectional: intersect_any must have launched, and the masks
+            must equal the host's per-pair connectivity_mask
   parity    lubm_like and dblp_like at scale 0.3: the card's result sets
-            equal the CPU engine's, exactly
+            equal the CPU engine's, exactly, for rdf_h and for the bloom
+            configuration
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the repository beside it, the script exits non-zero and prints no result.
@@ -43,6 +55,15 @@ OPS_PER_S = 67e12
 
 A_INVALID = (1 << 31) - 1
 B_INVALID = (1 << 31) - 2
+
+# where the engines run; a CPU rehearsal of the phases sets "cpu"
+DEVICE = "cuda"
+
+# the kernels each path must launch
+MAIN_KERNELS = ("merge_probe", "expand_segments", "window_probe",
+                "interval_count")
+BLOOM_KERNELS = ("bitmask_contains",)
+CONN_KERNELS = ("intersect_any",)
 
 
 def fail(msg: str) -> None:
@@ -111,6 +132,23 @@ def bound(nbytes: float, nops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def reset_launches() -> None:
+    from repro_torch.kernels import ops
+    for k in ops.cuda_kernels().values():
+        k.launches = 0
+
+
+def read_launches(path: str, required) -> dict:
+    """Launch counts of every kernel since reset_launches(); fails when a
+    kernel of `path` was launched no time."""
+    from repro_torch.kernels import ops
+    launches = {name: k.launches for name, k in ops.cuda_kernels().items()}
+    missing = [name for name in required if launches[name] == 0]
+    if missing:
+        fail(f"the {path} path launched no {missing} kernel")
+    return launches
+
+
 def compare(name, got, want) -> dict:
     import torch
     mism, err = 0, 0
@@ -134,6 +172,8 @@ def kernel_phase(ds, rng) -> list:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import radix_join as krad
     from repro_torch.core.matching import _radix_bits
+    from repro_torch.core.connectivity import reach_sets
+    from repro_torch.core.signature import bloom_query_sig, build_bloom
 
     dev = torch.device("cuda")
     out = []
@@ -199,7 +239,12 @@ def kernel_phase(ds, rng) -> list:
            "src/repro/kernels/radix_join.py:135",
            lambda: ops.radix_probe(probe, win),
            lambda: ref.window_probe_ref(probe, win),
-           None, 4 * (n * lmax + 3 * n), 2 * n * lmax,
+           # windows are ascending (each bucket span sorted, B_INVALID
+           # tail): the left and right searches give lt and lt + cnt
+           lambda: (torch.searchsorted(win, probe[:, None], out_int32=True),
+                    torch.searchsorted(win, probe[:, None], right=True,
+                                       out_int32=True)),
+           4 * (n * lmax + 3 * n), 2 * n * lmax,
            ops.radix_probe(probe, win), ref.window_probe_ref(probe, win))
 
     # interval_count: C = 8192 candidates over real NI rows of the 2-hop
@@ -240,11 +285,64 @@ def kernel_phase(ds, rng) -> list:
           "ms_valid_prefix": out[-1]["ms"],
           "call_ms_valid_prefix": out[-1]["call_ms"],
           "mean_row_len": valid / c})
+    del ids, lens
+
+    # bitmask_contains: the real 1-hop bloom signatures of every node
+    # (W = 8 words) against the query signature of two real node ids.  The
+    # test of a row ends at its first word with a missing bit: the bound
+    # counts the words up to there
+    e1 = ds.ni.entries[1]
+    sigs_np = build_bloom(e1)
+    sigs = ops.bits32(sigs_np).to(dev)
+    n_sig, w = sigs.shape
+    node = int(np.argmax((e1.ids >= 0).sum(axis=1)))
+    required = e1.ids[node][e1.ids[node] >= 0][:2].astype(np.int64)
+    qsig_np = bloom_query_sig(required)
+    qsig = ops.bits32(qsig_np).to(dev)
+    miss = (qsig_np[None, :] & ~sigs_np) != 0
+    words = int(np.where(miss.any(1), miss.argmax(1) + 1, w).sum())
+    record("bitmask_contains", "bitmask_contains.cu",
+           "src/repro/kernels/bitmask_contains.py:39",
+           lambda: ops.bitmask_contains(sigs, qsig),
+           lambda: ref.bitmask_contains_ref(sigs, qsig),
+           None, 4 * words + 4 * w + 4 * n_sig, 2 * words,
+           (ops.bitmask_contains(sigs, qsig),),
+           (ref.bitmask_contains_ref(sigs, qsig),))
+    sig_pass = int((~miss.any(1)).sum())
+
+    # intersect_any: real reach sets of two sets of 1,024 random nodes,
+    # forward 2 hops against backward 2 hops (the hop split of d_c = 4).
+    # A pair's test ends at the first b entry found in its a-row: the
+    # bound counts the b-row up to there
+    p = 1024
+    fa, _ = reach_sets(ds.ni, rng.integers(0, ds.graph.num_nodes, p), 2, +1)
+    bb, _ = reach_sets(ds.ni, rng.integers(0, ds.graph.num_nodes, p), 2, -1)
+    fa, bb = np.ascontiguousarray(fa), np.ascontiguousarray(bb)
+    ra = torch.as_tensor(fa, device=dev)
+    rb = torch.as_tensor(bb, device=dev)
+    wa, wb = fa.shape[1], bb.shape[1]
+    found = np.stack([np.isin(bb[i], fa[i][fa[i] >= 0]) for i in range(p)])
+    b_read = np.where(found.any(1), found.argmax(1) + 1, wb)
+    record("intersect_any", "intersect_any.cu",
+           "src/repro/kernels/sorted_intersect.py:47",
+           lambda: ops.intersect_any(ra, rb),
+           lambda: ref.intersect_any_sorted(ra, rb),
+           None, 4 * (p * wa + int(b_read.sum())) + 4 * p,
+           int(((fa >= 0).sum(1) * b_read).sum()),
+           (ops.intersect_any(ra, rb),), (ref.intersect_any_sorted(ra, rb),))
     emit({"phase": "kernels", "cap": entry.cap,
           "shapes": {"merge_probe": [n, n], "expand_segments": [n, cap],
                      "window_probe": [n, lmax],
-                     "interval_count": [c, entry.cap, j]}})
-    del ids, lens
+                     "interval_count": [c, entry.cap, j],
+                     "bitmask_contains": [n_sig, w],
+                     "intersect_any": [p, wa, wb]},
+          "bitmask_contains_pass": sig_pass,
+          "bitmask_contains_words_read": words,
+          "intersect_any_hits": int(found.any(1).sum()),
+          "intersect_any_b_read": int(b_read.sum()),
+          "intersect_any_valid_per_row": [float((fa >= 0).sum(1).mean()),
+                                          float((bb >= 0).sum(1).mean())]})
+    del sigs, ra, rb
     torch.cuda.empty_cache()
     return out
 
@@ -280,21 +378,17 @@ def profile_warm(gpu, pqs) -> dict:
 N_QUERIES = 12          # the last 4 carry one connection edge each
 
 
-def main_phase(ds, n_queries: int) -> dict:
-    import numpy as np
+def main_phase(ds, n_queries: int):
     import torch
     from repro_torch.data import random_query
-    from repro_torch.kernels import ops
 
     g = ds.graph
-    gpu = ds.engine("rdf_h")                       # device="cuda" default
+    gpu = ds.engine("rdf_h", device=DEVICE)
     cpu = ds.engine("rdf_h", device="cpu")
     queries = [random_query(g, size=6, seed=100 + i,
                             n_connection=1 if i >= n_queries - 4 else 0)
                for i in range(n_queries)]
-    kernels = ops.cuda_kernels()
-    for k in kernels.values():
-        k.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     lat = {"cold": [], "warm": []}
     results = {}
@@ -312,10 +406,7 @@ def main_phase(ds, n_queries: int) -> dict:
             results[(run, i)] = r
         lat[run + "_wall"] = time.perf_counter() - t_run
     wall = time.perf_counter() - t_start
-    launches = {name: k.launches for name, k in kernels.items()}
-    missing = [name for name, c in launches.items() if c == 0]
-    if missing:
-        fail(f"the main path launched no {missing} kernel")
+    launches = read_launches("main", MAIN_KERNELS)
     profile = profile_warm(gpu, pqs)
 
     # correctness: shape and id range, warm == cold, and — for the first
@@ -335,8 +426,6 @@ def main_phase(ds, n_queries: int) -> dict:
             fail(f"query {i}: the card's result differs from the CPU's")
     cpu_check_s = time.perf_counter() - t0
 
-    def pct(xs, p):
-        return float(np.percentile(np.asarray(xs) * 1e3, p))
     stats = [results[("cold", i)].stats for i in range(n_queries)]
     summary = {
         "phase": "main", "queries": n_queries,
@@ -355,31 +444,179 @@ def main_phase(ds, n_queries: int) -> dict:
         "match_ms": [s.match_time * 1e3 for s in stats],
         "conn_ms": [s.conn_time * 1e3 for s in stats],
         "launches": launches,
-        "launches_per_query": {k: v / (2 * n_queries)
-                               for k, v in launches.items()},
+        "launches_per_query": {k: launches[k] / (2 * n_queries)
+                               for k in MAIN_KERNELS},
         "wall_s": wall, "cpu_checked": list(cpu_checked),
         "cpu_check_s": cpu_check_s, "warm_profile": profile,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(summary)
+    conn = [(queries[i], results[("cold", i)]) for i in range(n_queries)
+            if queries[i].connections]
+    return launches, conn
+
+
+def pct(xs, p):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs) * 1e3, p))
+
+
+N_BLOOM = 6
+
+
+def bloom_phase(ds) -> dict:
+    """SPath(NI2) with the bloom prefilter at full size, cold then warm,
+    against the card's spath_ni2 engine without it."""
+    import numpy as np
+    import torch
+    import repro_torch.core.engine as engine_mod
+    from repro_torch.core import Engine, EngineConfig
+    from repro_torch.data import random_query
+
+    g = ds.graph
+    queries = [random_query(g, size=6, seed=200 + i, exact_nodes=0.5)
+               for i in range(N_BLOOM)]
+    plain = ds.engine("spath_ni2", device=DEVICE)
+    bloom = Engine(ds, EngineConfig(check_policy="always", use_bloom=True,
+                                    device=DEVICE))
+    want = [plain.execute(q) for q in queries]
+    torch.cuda.synchronize()
+
+    # the candidates each prefilter call rejects, read by wrapping the
+    # engine's call for this phase only
+    removed = []
+    prefilter = engine_mod.bloom_prefilter
+
+    def counting(*a, **kw):
+        ok = prefilter(*a, **kw)
+        removed.append(int((~ok).sum()))
+        return ok
+    engine_mod.bloom_prefilter = counting
+    try:
+        reset_launches()
+        lat = {"cold": [], "warm": []}
+        res = {}
+        pqs = [None] * N_BLOOM
+        for run in ("cold", "warm"):
+            for i, q in enumerate(queries):
+                t0 = time.perf_counter()
+                if run == "cold":
+                    pqs[i] = bloom.prepare(q)
+                res[(run, i)] = bloom.execute_prepared(pqs[i])
+                torch.cuda.synchronize()
+                lat[run].append(time.perf_counter() - t0)
+        launches = read_launches("bloom", BLOOM_KERNELS)
+    finally:
+        engine_mod.bloom_prefilter = prefilter
+
+    for i, q in enumerate(queries):
+        cold = res[("cold", i)]
+        check_rows(cold, g.num_nodes, q.num_nodes)
+        if cold.result_set() != want[i].result_set():
+            fail(f"bloom query {i}: the result differs from spath_ni2's")
+        if res[("warm", i)].result_set() != cold.result_set():
+            fail(f"bloom query {i}: warm result differs from cold")
+        if cold.stats.candidates_after != want[i].stats.candidates_after:
+            fail(f"bloom query {i}: candidates after the check differ")
+    check_bloom = [res[("cold", i)].stats.check_time * 1e3
+                   for i in range(N_BLOOM)]
+    check_plain = [r.stats.check_time * 1e3 for r in want]
+    emit({"phase": "bloom", "queries": N_BLOOM,
+          "launches": {k: launches[k] for k in BLOOM_KERNELS},
+          "prefilter_calls": len(removed),
+          "prefilter_removed": sum(removed),
+          "candidates_before": [r.stats.candidates_before for r in want],
+          "candidates_after": [r.stats.candidates_after for r in want],
+          "matches": [r.count for r in want],
+          "check_ms_bloom": check_bloom, "check_ms_plain": check_plain,
+          "check_ms_bloom_median": float(np.median(check_bloom)),
+          "check_ms_plain_median": float(np.median(check_plain)),
+          "p50_ms_cold": pct(lat["cold"], 50),
+          "p50_ms_warm": pct(lat["warm"], 50),
+          "latency_ms_cold": [x * 1e3 for x in lat["cold"]],
+          "latency_ms_warm": [x * 1e3 for x in lat["warm"]]})
+    return launches
+
+
+N_PAIRS = 8192
+
+
+def conn_phase(ds, conn) -> dict:
+    """connectivity_mask_vectorized on the card over pairs of the main
+    phase's connection edges: half from their result rows (connected),
+    half random from their endpoint intervals; held against the host's
+    per-pair connectivity_mask."""
+    import numpy as np
+    import torch
+    from repro_torch.core import connectivity_mask, \
+        connectivity_mask_vectorized
+
+    g, rng = ds.graph, np.random.default_rng(1)
+    per = N_PAIRS // 2 // len(conn)
+    reset_launches()
+    t_dev = t_host = 0.0
+    n_pairs, hits = 0, {False: 0, True: 0}
+    for q, r in conn:
+        c = q.connections[0]
+        iv = q.intervals(ds.idmap)
+        rows = r.rows[rng.integers(0, r.count, per)] if r.count \
+            else np.empty((0, q.num_nodes), np.int32)
+        a = np.concatenate([rows[:, r.cols.index(c.src)],
+                            rng.integers(iv[c.src, 0], iv[c.src, 1], per)])
+        b = np.concatenate([rows[:, r.cols.index(c.dst)],
+                            rng.integers(iv[c.dst, 0], iv[c.dst, 1], per)])
+        for bi in (False, True):
+            t0 = time.perf_counter()
+            got = connectivity_mask_vectorized(g, ds.ni, a, b, c.max_dist,
+                                               bi, device=DEVICE)
+            torch.cuda.synchronize()
+            t_dev += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = connectivity_mask(g, ds.ni, a, b, c.max_dist, bi)
+            t_host += time.perf_counter() - t0
+            if not np.array_equal(got, want):
+                fail(f"conn: {int((got != want).sum())} pairs differ from "
+                     "the host's per-pair mask")
+            if bi == c.bidirectional and not got[: len(rows)].all():
+                fail("conn: a result row's endpoints are not connected")
+            hits[bi] += int(got.sum())
+        n_pairs += len(a)
+    launches = read_launches("conn", CONN_KERNELS)
+    emit({"phase": "conn", "pairs": n_pairs, "queries": len(conn),
+          "launches": {k: launches[k] for k in CONN_KERNELS},
+          "hit_share": hits[False] / n_pairs,
+          "hit_share_bidirectional": hits[True] / n_pairs,
+          "seconds": t_dev, "host_mask_seconds": t_host})
     return launches
 
 
 def parity_phase(scale: float) -> None:
-    from repro_torch.core import Dataset
+    from repro_torch.core import Dataset, Engine, EngineConfig
     from repro_torch.data import dblp_like, lubm_like, random_query
+    bloom = dict(check_policy="always", use_bloom=True)
     for name, gen in (("lubm", lubm_like), ("dblp", dblp_like)):
         t0 = time.perf_counter()
         ds = Dataset.build(gen(scale=scale, seed=1))
-        gpu, cpu = ds.engine("rdf_h"), ds.engine("rdf_h", device="cpu")
-        counts = []
-        for i in range(6):
-            q = random_query(ds.graph, size=6, seed=100 + i,
-                             n_connection=1 if i >= 4 else 0)
-            a, b = gpu.execute(q), cpu.execute(q)
-            if a.result_set() != b.result_set():
-                fail(f"parity {name} query {i}: card and CPU differ")
-            counts.append(a.count)
+        # (card engine, CPU engine, query of seed i) per configuration
+        configs = {
+            "rdf_h": (ds.engine("rdf_h", device=DEVICE),
+                      ds.engine("rdf_h", device="cpu"),
+                      lambda i: random_query(ds.graph, size=6, seed=100 + i,
+                                             n_connection=int(i >= 4))),
+            "bloom": (Engine(ds, EngineConfig(device=DEVICE, **bloom)),
+                      Engine(ds, EngineConfig(device="cpu", **bloom)),
+                      lambda i: random_query(ds.graph, size=6, seed=100 + i,
+                                             exact_nodes=0.5))}
+        counts = {}
+        for cname, (gpu, cpu, query) in configs.items():
+            counts[cname] = []
+            for i in range(6):
+                q = query(i)
+                a, b = gpu.execute(q), cpu.execute(q)
+                if a.result_set() != b.result_set():
+                    fail(f"parity {name} {cname} query {i}: "
+                         "card and CPU differ")
+                counts[cname].append(a.count)
         emit({"phase": "parity", "dataset": name, "scale": scale,
               "triples": ds.num_edges, "matches": counts, "equal": True,
               "seconds": time.perf_counter() - t0})
@@ -427,10 +664,16 @@ def main() -> None:
           "seconds": time.perf_counter() - t0})
 
     rows = kernel_phase(ds, np.random.default_rng(0))
-    launches = main_phase(ds, N_QUERIES)
+    main_launches, conn = main_phase(ds, N_QUERIES)
+    bloom_launches = bloom_phase(ds)
+    conn_launches = conn_phase(ds, conn)
+    # each kernel's launches come from the phase that runs its path
+    launches = {**{k: main_launches[k] for k in MAIN_KERNELS},
+                **{k: bloom_launches[k] for k in BLOOM_KERNELS},
+                **{k: conn_launches[k] for k in CONN_KERNELS}}
     for row in rows:
         row["launches"] = launches[row["name"]]
-    del ds
+    del ds, conn
     parity_phase(args.parity_scale)
 
     emit({"kernels": rows})

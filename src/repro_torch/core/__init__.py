@@ -1,7 +1,6 @@
 """RDF-ℏ core in PyTorch: the engine of ``repro.core``, module for module.
 
-Not ported yet (ROADMAP Queue 1): ``distributed``, the bloom prefilter of
-``signature`` and ``connectivity_mask_vectorized``.
+Not ported yet (ROADMAP Queue 1): ``distributed``.
 """
 from .graph import RDFGraph, IDMap, RESOURCE, LITERAL, REL, ATTR, csr_patch
 from .ni_index import NIIndex, NIEntry, build_ni_index, \
@@ -15,7 +14,8 @@ from .matching import Table, CandidateTable, SortedRun, JoinTelemetry, \
     join_tables, cross_join, edge_pairs, graph_edges, \
     dtree_candidates, CapacityOverflow, resolve_join_impl, filter_rows, \
     injective_filter, dedup_project, empty_table
-from .connectivity import (connectivity_mask, reach_sets,
+from .connectivity import (connectivity_mask, connectivity_mask_vectorized,
+    reach_sets,
     enumerate_shortest_paths,
     instantiate_connections, ReachCache, ReachJoinInfo, reach_pairs,
     connected_pair_table, reach_join, reach_filter,

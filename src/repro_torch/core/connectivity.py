@@ -44,6 +44,7 @@ from .ni_index import NIIndex
 from .matching import (Table, DEFAULT_NESTED_MAX, join_tables, planned_join,
                        dedup_project, empty_table, filter_rows, _pow2)
 from ..obs.trace import NULL_TRACER
+from ..kernels import ops
 
 
 # Synthetic column id for the reach-id column of (node, reach_id) pair
@@ -339,6 +340,52 @@ def connectivity_mask(graph: RDFGraph, ni: NIIndex,
     if bidirectional:
         out |= connectivity_mask(graph, ni, b_nodes, a_nodes, d_c,
                                  False, impl=impl, chunk=chunk, cache=cache)
+    return out
+
+
+def connectivity_mask_vectorized(graph: RDFGraph, ni: NIIndex,
+                                 a_nodes: np.ndarray, b_nodes: np.ndarray,
+                                 d_c: int, bidirectional: bool = False,
+                                 *, impl: str = "auto", chunk: int = 1024,
+                                 device,
+                                 cache: ReachCache | None = None
+                                 ) -> np.ndarray:
+    """Batched form of `connectivity_mask`: per chunk of pairs, reach sets
+    gathered on the host (`reach_sets`), one intersect_any launch on
+    `device`, and the hits copied back.  Exact: rows whose reach set
+    overflowed are decided on exact reach sets (`_exact_reach`: host BFS
+    where the NI index overflowed), memoized per call, so a hub that
+    overflows in many pairs is searched once.  device is required, so a
+    caller never lands on the CPU by leaving it out."""
+    dev = ops.resolve_device(device)
+    if cache is None:
+        cache = ReachCache()
+    if bidirectional:
+        fwd = connectivity_mask_vectorized(graph, ni, a_nodes, b_nodes,
+                                           d_c, impl=impl, chunk=chunk,
+                                           device=dev, cache=cache)
+        rev = connectivity_mask_vectorized(graph, ni, b_nodes, a_nodes,
+                                           d_c, impl=impl, chunk=chunk,
+                                           device=dev, cache=cache)
+        return fwd | rev
+    p = len(a_nodes)
+    out = np.zeros(p, dtype=bool)
+    h_fwd, h_bwd = hop_split(d_c)
+    for s in range(0, p, chunk):
+        e = min(s + chunk, p)
+        a, b = a_nodes[s:e], b_nodes[s:e]
+        fa, ofa = reach_sets(ni, a, h_fwd, +1)
+        bb, ofb = reach_sets(ni, b, h_bwd, -1)
+        hit = ops.intersect_any(
+            torch.as_tensor(np.ascontiguousarray(fa), device=dev),
+            torch.as_tensor(np.ascontiguousarray(bb), device=dev),
+            impl=impl).cpu().numpy().astype(bool)
+        of = ofa | ofb
+        for i in np.nonzero(of)[0]:
+            fs = _exact_reach(graph, ni, int(a[i]), h_fwd, +1, cache)
+            bs = _exact_reach(graph, ni, int(b[i]), h_bwd, -1, cache)
+            hit[i] = not fs.isdisjoint(bs)
+        out[s:e] = hit
     return out
 
 

@@ -49,7 +49,8 @@ from .graph import RDFGraph
 from .ni_index import NIIndex
 from .dataset import Dataset, ENGINE_VARIANTS
 from .query import QueryTemplate, ConnectionEdge
-from .signature import build_requirements, check_interval_candidates
+from .signature import (build_requirements, check_interval_candidates,
+                        bloom_prefilter, build_bloom)
 from .decompose import decompose, join_order, DTree
 from .matching import (Table, CapacityOverflow, dtree_candidates,
                        cross_join, single_node_table, filter_rows,
@@ -63,6 +64,7 @@ from .planner import (Thresholds, CostModel, PlanDecision, decide,
                       plan_table_joins, plan_connections, ConnFeatures,
                       choose_connection_impl)
 from .stats import DatasetStats, connection_selectivity, endpoint_reach
+from ..kernels.ops import bits32, resolve_device
 from ..obs.trace import NULL_TRACER
 
 
@@ -74,7 +76,7 @@ class EngineConfig:
     thresholds: Thresholds = field(default_factory=Thresholds)
     chunk: int = 8192
     max_rows: int | None = 1 << 20   # LIMIT guard for explosive joins
-    use_bloom: bool = False          # gStore-style prefilter: not ported yet
+    use_bloom: bool = False          # gStore-style bloom prefilter first
     join_impl: str = "auto"     # auto (planner per-join) | sorted | radix | nested
     plan_mode: str = "cost"          # whole-query join order: cost | greedy
     # fused sort-merge chain (kernels.fused_join: pack→sort→probe→expand
@@ -92,16 +94,6 @@ class EngineConfig:
     cost_model: CostModel = field(default_factory=CostModel)
     # where tables, NI tensors and masks live and the kernels run
     device: str = "cuda"
-
-
-def resolve_device(device: str) -> torch.device:
-    """The engine's device; "cuda" without CUDA raises (no silent CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but CUDA is not available; "
-            "pass device='cpu' to run on the CPU")
-    return dev
 
 
 @dataclass
@@ -300,7 +292,8 @@ class Engine:
         self.device = resolve_device(self.cfg.device)
         self.idmap = ds.idmap
         self.stats = ds.stats
-        # device-resident NI tensors ((sign, d) keys) and edge tensors
+        # device-resident NI tensors ((sign, d) keys), edge tensors and
+        # bloom signatures
         self._dev_cache: dict = {}
         # observability: the serving layer installs its Tracer here; the
         # default no-op tracer keeps bare-engine hot paths at ~zero cost
@@ -363,16 +356,19 @@ class Engine:
                     mask = np.zeros(n, dtype=bool)
                     reqs = build_requirements(query, comp, q,
                                               min(cfg.d_check, self.ni.d_max), iv)
-                    if cfg.use_bloom:
-                        raise NotImplementedError(
-                            "use_bloom: the bloom prefilter and its "
-                            "bitmask_contains kernel are not ported yet "
-                            "(ROADMAP Queue 2)")
-                    ok = check_interval_candidates(
-                        self.ni, reqs, lo, hi,
-                        min(cfg.d_check, self.ni.d_max),
-                        impl=cfg.impl, chunk=cfg.chunk,
-                        device_cache=self._dev_cache, device=self.device)
+                    ok = np.ones(hi - lo, dtype=bool)
+                    if cfg.use_bloom and hi > lo:
+                        ok &= bloom_prefilter(self._bloom_sigs(),
+                                              self.ni.entries[1], reqs,
+                                              lo, hi, impl=cfg.impl,
+                                              device=self.device)
+                    if ok.any():
+                        ok &= check_interval_candidates(
+                            self.ni, reqs, lo, hi,
+                            min(cfg.d_check, self.ni.d_max),
+                            impl=cfg.impl, chunk=cfg.chunk,
+                            device_cache=self._dev_cache,
+                            device=self.device)
                     mask[lo:hi] = ok
                     pass_np[q] = mask
                     pass_masks[q] = torch.as_tensor(mask, device=self.device)
@@ -527,6 +523,14 @@ class Engine:
         if "edges" not in self._dev_cache:
             self._dev_cache["edges"] = graph_edges(self.graph, self.device)
         return self._dev_cache["edges"]
+
+    def _bloom_sigs(self) -> torch.Tensor:
+        """The 1-hop bloom signatures on the engine's device: built on the
+        host at first use and uploaded once per engine."""
+        if "bloom" not in self._dev_cache:
+            self._dev_cache["bloom"] = bits32(
+                build_bloom(self.ni.entries[1])).to(self.device)
+        return self._dev_cache["bloom"]
 
     def _probe_impl(self) -> str:
         """merge-probe kernel impl for sort-merge joins.  The 'ref' engine

@@ -11,8 +11,11 @@ Device side counts, per exact distance, the candidates' NI ids in each
 interval with the interval_count kernel (which gathers the candidates' rows
 itself), cumulative-sums over distance on the host, and compares against
 the requirements.  Overflowed NI entries auto-pass (prune only on certain
-information).  The bloom prefilter of the reference is not ported yet
-(ROADMAP Queue 2).
+information).
+
+The gStore-style bloom prefilter (``bloom_prefilter``, with
+``EngineConfig.use_bloom``) tests 1-hop bit signatures of exact keywords
+with the bitmask_contains kernel before the check.
 """
 from __future__ import annotations
 
@@ -178,3 +181,75 @@ def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
                     ok &= sat | over
         out[start:stop] = ok
     return out
+
+
+# ---------------------------------------------------------------------- #
+# Bloom/bitstring signature prefilter (gStore-style; uses the
+# bitmask_contains kernel).  Sound one-sided filter for EXACT-keyword
+# neighborhoods: if a required neighbor id's bits are not contained in a
+# candidate's signature, the candidate cannot have that neighbor.
+# ---------------------------------------------------------------------- #
+BLOOM_WORDS = 8      # 256-bit signatures
+_BLOOM_K = 2
+
+
+def _bloom_bits(ids: np.ndarray, words: int = BLOOM_WORDS):
+    """Bit positions (k hashes) for each id; ids int64 array."""
+    n_bits = 32 * words
+    h1 = (ids.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)) \
+        >> np.uint64(40)
+    h2 = (ids.astype(np.uint64) * np.uint64(0xBF58476D1CE4E5B9)) \
+        >> np.uint64(40)
+    return (h1 % n_bits).astype(np.int64), (h2 % n_bits).astype(np.int64)
+
+
+def build_bloom(entry, words: int = BLOOM_WORDS) -> np.ndarray:
+    """[N, words] uint32 signatures of each node's neighbor-id set."""
+    n, cap = entry.ids.shape
+    sig = np.zeros((n, words), np.uint32)
+    ids = entry.ids
+    valid = ids >= 0
+    rows = np.repeat(np.arange(n), cap).reshape(n, cap)[valid]
+    flat = ids[valid].astype(np.int64)
+    for bits in _bloom_bits(flat, words):
+        word, bit = bits // 32, bits % 32
+        np.bitwise_or.at(sig, (rows, word.astype(np.int64)),
+                         (np.uint32(1) << bit.astype(np.uint32)))
+    return sig
+
+
+def bloom_query_sig(required_ids: np.ndarray,
+                    words: int = BLOOM_WORDS) -> np.ndarray:
+    sig = np.zeros(words, np.uint32)
+    for bits in _bloom_bits(required_ids.astype(np.int64), words):
+        word, bit = bits // 32, bits % 32
+        np.bitwise_or.at(sig, word.astype(np.int64),
+                         np.uint32(1) << bit.astype(np.uint32))
+    return sig
+
+
+def bloom_prefilter(sigs: torch.Tensor, entry, reqs: NodeReqs,
+                    lo: int, hi: int, *, impl: str = "auto",
+                    device) -> np.ndarray:
+    """Pass mask over candidates lo..hi using 1-hop bloom signatures.
+
+    sigs: ``build_bloom(entry)`` as int32 bit patterns on `device` (the
+    engine uploads it once); the kernel reads the row slice sigs[lo:hi]
+    in place.  device: where the query signature goes and the test runs;
+    required, like check_interval_candidates'.  Only exact keywords
+    (interval width 1) participate; wider intervals cannot be expressed
+    as bits (the reason the paper's NI generalizes gStore-style
+    signatures).  Overflowed entries auto-pass."""
+    n_cand = hi - lo
+    dreq = reqs.fwd
+    if dreq is None or not dreq.need.any():
+        return np.ones(n_cand, dtype=bool)
+    exact = [(int(l),) for l, h, need in
+             zip(dreq.lo, dreq.hi, dreq.need[0])
+             if h - l == 1 and need > 0] if dreq.need.shape[0] else []
+    if not exact:
+        return np.ones(n_cand, dtype=bool)
+    required = np.asarray([e[0] for e in exact], np.int64)
+    qsig = ops.bits32(bloom_query_sig(required)).to(device)
+    ok = ops.bitmask_contains(sigs[lo:hi], qsig, impl=impl)
+    return ok.cpu().numpy().astype(bool) | entry.overflow[lo:hi]

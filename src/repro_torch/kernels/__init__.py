@@ -5,5 +5,5 @@ plain PyTorch version in ``ref.py``; ``ops.py`` dispatches by device (the
 CUDA kernel for CUDA tensors, the plain version for CPU tensors).
 """
 from . import ops, ref
-from .ops import (distinct_mask, expand_segments, interval_count,
-                  merge_probe, radix_probe)
+from .ops import (bitmask_contains, distinct_mask, expand_segments,
+                  interval_count, intersect_any, merge_probe, radix_probe)

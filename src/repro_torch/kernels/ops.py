@@ -8,19 +8,22 @@ The device of the input decides:
 impl:
   'auto' | 'sorted' -> as above (the binary-search plain versions on CPU);
   'cuda'            -> the CUDA kernel; raises for a CPU tensor;
-  'ref'             -> on CPU the O(A*B) / O(C*B*J) compare oracle, the
-                       form the kernels are validated against.
+  'ref'             -> on CPU the O(A*B) / O(C*B*J) / O(P*A*B) compare
+                       oracle, the form the kernels are validated against.
 
 No wrapper falls back: a CUDA tensor whose kernel does not build or
 launch raises.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import ref as _ref
+from .bitmask_contains import bitmask_contains_cuda
 from .interval_count import interval_count_cuda
 from .merge_probe import merge_probe_cuda
+from .sorted_intersect import intersect_any_cuda
 
 IMPLS = ("auto", "cuda", "sorted", "ref")
 
@@ -36,8 +39,29 @@ def on_cuda(t: torch.Tensor, impl: str) -> bool:
     return False
 
 
+def resolve_device(device) -> torch.device:
+    """The device a caller asked for; "cuda" without CUDA raises (no
+    silent CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU")
+    return dev
+
+
 def _i32(t) -> torch.Tensor:
     return torch.as_tensor(t).to(torch.int32).contiguous()
+
+
+def bits32(x) -> torch.Tensor:
+    """32-bit words as an int32 tensor with the same bits: a uint32 numpy
+    array is reinterpreted, not converted."""
+    if isinstance(x, np.ndarray):
+        if x.dtype == np.uint32:
+            x = np.ascontiguousarray(x).view(np.int32)
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+    return x.to(torch.int32)
 
 
 def merge_probe(a_keys, b_keys, *, impl: str = "auto"):
@@ -89,6 +113,27 @@ def interval_count(ids, lo, hi, *, cands=None, lens=None,
     return _ref.interval_count_gather_ref(ids, cands, lo, hi, lens)
 
 
+def bitmask_contains(cand, query, *, impl: str = "auto"):
+    """ok[c] = 1 iff every bit of query [W] is set in cand[c] [C, W].
+    Words are int32 bit patterns (uint32 arrays are reinterpreted); on
+    CUDA, cand may be a row slice of a larger signature table."""
+    cand, query = bits32(cand), bits32(query).contiguous()
+    if on_cuda(cand, impl):
+        return bitmask_contains_cuda(cand, query)
+    return _ref.bitmask_contains_ref(cand, query)
+
+
+def intersect_any(a, b, *, impl: str = "auto"):
+    """hit[p] = 1 iff the valid (>= 0) entries of a[p] and b[p] intersect
+    (rows -1 padded, in any order)."""
+    a, b = _i32(a), _i32(b)
+    if on_cuda(a, impl):
+        return intersect_any_cuda(a, b)
+    if impl == "ref":
+        return _ref.intersect_any_ref(a, b)
+    return _ref.intersect_any_sorted(a, b)
+
+
 def distinct_mask(rows, *, impl: str = "auto"):
     """First-of-group mask over lexicographically sorted rows [N, K].
 
@@ -100,13 +145,20 @@ def distinct_mask(rows, *, impl: str = "auto"):
 
 
 def cuda_kernels() -> dict:
-    """name -> CudaKernel of every kernel on the engine's path; each
-    carries its ``launches`` count."""
+    """name -> CudaKernel of every kernel of the package; each carries its
+    ``launches`` count.  Each kernel belongs to a path: the first four to
+    the engine's main path (joins and the neighborhood check),
+    bitmask_contains to the bloom prefilter (``EngineConfig.use_bloom``)
+    and intersect_any to ``connectivity_mask_vectorized``."""
+    from .bitmask_contains import KERNEL as BITMASK_KERNEL
     from .fused_join import EXPAND_KERNEL
     from .interval_count import KERNEL as INTERVAL_KERNEL
     from .merge_probe import KERNEL as MERGE_KERNEL
     from .radix_join import WINDOW_KERNEL
+    from .sorted_intersect import KERNEL as INTERSECT_KERNEL
     return {"merge_probe": MERGE_KERNEL,
             "expand_segments": EXPAND_KERNEL,
             "window_probe": WINDOW_KERNEL,
-            "interval_count": INTERVAL_KERNEL}
+            "interval_count": INTERVAL_KERNEL,
+            "bitmask_contains": BITMASK_KERNEL,
+            "intersect_any": INTERSECT_KERNEL}

@@ -4,7 +4,10 @@ They define the semantics, run on the CPU (the wrappers in ``ops`` and the
 kernel modules take them for CPU tensors), and are what ``chip_smoke.py``
 holds each CUDA kernel against on the card.  All of them are integer
 functions, so agreement is exact.  Twins of ``repro.kernels.ref`` and of
-the window-probe oracle in ``repro.kernels.radix_join``.
+the window-probe oracle in ``repro.kernels.radix_join``.  Bit signatures
+(the reference's uint32) are int32 tensors holding the same bits:
+``torch.uint32`` supports few operators, and ``&`` and ``~`` on int32
+give the same bits.
 """
 from __future__ import annotations
 
@@ -95,6 +98,39 @@ def window_probe_ref(a_keys: torch.Tensor, win_keys: torch.Tensor):
     a = a_keys[:, None]
     return ((win_keys < a).sum(dim=1, dtype=torch.int32),
             (win_keys == a).sum(dim=1, dtype=torch.int32))
+
+
+def bitmask_contains_ref(cand: torch.Tensor,
+                         query: torch.Tensor) -> torch.Tensor:
+    """ok[c] = 1 iff every bit set in query is set in cand[c].
+
+    cand: [C, W] int32 bit patterns, query: [W].  Returns [C] int32."""
+    miss = query[None, :] & ~cand
+    return (~(miss != 0).any(dim=1)).to(torch.int32)
+
+
+def intersect_any_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """hit[p] = 1 iff the valid (>= 0) entries of a[p] and b[p] intersect.
+
+    a: [P, A], b: [P, B] int32, -1 padded, rows in any order.  Returns [P]
+    int32.  O(P*A*B) compare oracle."""
+    eq = a[:, :, None] == b[:, None, :]
+    valid = (a[:, :, None] >= 0) & (b[:, None, :] >= 0)
+    return (eq & valid).any(dim=2).any(dim=1).to(torch.int32)
+
+
+def intersect_any_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Membership form of intersect_any_ref: sort each a-row with -1
+    mapped to INT32_MAX, then binary-search every b entry in its row —
+    O(P*B log A) time and O(P*B) memory."""
+    p, w = a.shape
+    if w == 0 or b.shape[1] == 0:
+        return torch.zeros(p, dtype=torch.int32, device=a.device)
+    a_s = torch.sort(torch.where(a < 0, torch.full_like(a, I32_MAX), a),
+                     dim=1).values
+    idx = torch.searchsorted(a_s, b.contiguous()).clamp_(max=w - 1)
+    hit = (a_s.gather(1, idx) == b) & (b >= 0)
+    return hit.any(dim=1).to(torch.int32)
 
 
 def distinct_mask_sorted(rows: torch.Tensor) -> torch.Tensor:

@@ -89,6 +89,41 @@ def test_interval_count_kernel(dev, c, b, j):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("c,w", [(1, 1), (999, 3), (5000, 8), (300, 17),
+                                 (513, 4)])
+def test_bitmask_contains_kernel(dev, c, w):
+    rng = np.random.default_rng(c + w)
+    sigs = rng.integers(0, 2 ** 32, (c + 5, w), dtype=np.uint32)
+    table = ops.bits32(sigs).to(dev)
+    for q in (rng.integers(0, 2 ** 32, w, dtype=np.uint32),
+              sigs[c // 2] & sigs[(c // 3) + 1], sigs[c // 2]):
+        q = ops.bits32(q).to(dev)
+        # the whole table, and row slices sigs[lo:hi] at even and odd lo
+        for lo in (0, 1, 3):
+            cand = table[lo:lo + c]
+            got = ops.bitmask_contains(cand, q)
+            assert torch.equal(got, ref.bitmask_contains_ref(cand, q))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("p,a,b", [(1, 1, 1), (77, 130, 20), (1024, 25, 4096),
+                                   (300, 64, 65), (64, 200, 7)])
+def test_intersect_any_kernel(dev, p, a, b):
+    rng = np.random.default_rng(p + a + b)
+    x = np.where(rng.random((p, a)) < 0.3,
+                 rng.integers(0, 5000, (p, a)), -1)
+    y = np.where(rng.random((p, b)) < 0.3,
+                 rng.integers(0, 5000, (p, b)), -1)
+    x[::5] = -1                             # all-padding rows
+    y[2::7] = -1
+    x, y = _on(dev, x), _on(dev, y)
+    got = ops.intersect_any(x, y)
+    assert torch.equal(got, ref.intersect_any_sorted(x, y))
+    if p * a * b <= 1 << 22:
+        assert torch.equal(got, ref.intersect_any_ref(x, y))
+    torch.cuda.synchronize()
+
+
 def test_cuda_engine_matches_cpu_engine(dev):
     dt = T.Dataset.build(TD.DATASETS["lubm"](scale=0.3, seed=1))
     ec, eg = dt.engine("rdf_h", device="cpu"), dt.engine("rdf_h")
@@ -101,3 +136,34 @@ def test_cuda_engine_matches_cpu_engine(dev):
         assert eg.execute(q).result_set() == ec.execute(q).result_set()
     assert kernels["merge_probe"].launches > 0
     assert kernels["interval_count"].launches > 0
+
+
+def test_cuda_bloom_engine_matches_cpu_engine(dev):
+    dt = T.Dataset.build(TD.DATASETS["lubm"](scale=0.3, seed=1))
+    cfg = dict(check_policy="always", use_bloom=True)
+    ec = T.Engine(dt, T.EngineConfig(device="cpu", **cfg))
+    eg = T.Engine(dt, T.EngineConfig(**cfg))
+    kernel = ops.cuda_kernels()["bitmask_contains"]
+    kernel.launches = 0
+    for s in range(100, 106):
+        q = TD.random_query(dt.graph, size=6, seed=s, exact_nodes=0.5)
+        a, b = eg.execute(q), ec.execute(q)
+        assert a.result_set() == b.result_set()
+        assert a.stats.candidates_after == b.stats.candidates_after
+    assert kernel.launches > 0
+
+
+def test_cuda_connectivity_vectorized_matches_host_mask(dev):
+    g = TD.random_graph(n_nodes=90, n_edges=300, n_preds=3, seed=7)
+    ni = T.build_ni_index(g, d_max=2)
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, g.num_nodes, 700)
+    b = rng.integers(0, g.num_nodes, 700)
+    kernel = ops.cuda_kernels()["intersect_any"]
+    kernel.launches = 0
+    for bi in (False, True):
+        got = T.connectivity_mask_vectorized(g, ni, a, b, 4, bi, chunk=256,
+                                             device="cuda")
+        np.testing.assert_array_equal(
+            got, T.connectivity_mask(g, ni, a, b, 4, bi))
+    assert kernel.launches == 9             # 3 chunks, then 3 each way

@@ -158,13 +158,21 @@ def test_warm_run_never_replans_or_rechecks(monkeypatch):
            for s, nc in ((100, 0), (101, 1), (106, 1))]
     assert [pq.use_check for pq in pqs] == [True, True, False]
     colds = [eng.execute_prepared(pq) for pq in pqs]
+    # the bloom configuration too: its prefilter runs on the cold run only
+    bloom = T.Engine(dt, T.EngineConfig(device="cpu", check_policy="always",
+                                        use_bloom=True))
+    bpq = bloom.prepare(TD.random_query(dt.graph, size=6, seed=100,
+                                        exact_nodes=0.5))
+    bcold = bloom.execute_prepared(bpq)
+    assert "bloom" in bloom._dev_cache
 
     def forbidden(*a, **kw):
         raise AssertionError("warm run re-entered planning or the check")
     for name in ("decide", "plan_table_joins", "plan_connections",
                  "check_interval_candidates", "build_requirements",
-                 "choose_connection_impl"):
+                 "choose_connection_impl", "bloom_prefilter", "build_bloom"):
         monkeypatch.setattr(tengine, name, forbidden)
+    assert bloom.execute_prepared(bpq).result_set() == bcold.result_set()
     for pq, cold in zip(pqs, colds):
         warm = eng.execute_prepared(pq)
         assert warm.stats.cache_hit and warm.stats.join_retries == 0
@@ -184,13 +192,53 @@ def test_cuda_engine_raises_without_cuda(monkeypatch):
         T.Engine(dt, T.EngineConfig(device="cuda:0"))
 
 
-def test_bloom_is_not_ported_yet():
-    dt = T.Dataset.build(TD.DATASETS["imdb"](scale=0.05, seed=1))
-    eng = T.Engine(dt, T.EngineConfig(device="cpu", use_bloom=True,
-                                      check_policy="always"))
-    q = TD.random_query(dt.graph, size=6, seed=100)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        eng.execute(q)
+# (dataset, query seeds): the random graphs and queries of
+# tests/test_stats_planner.py::test_bloom_prefilter_engine_equality, and
+# lubm/dblp with exact keywords, where the prefilter has work to do
+BLOOM_GRID = [("random", 0), ("random", 1), ("random", 2),
+              ("lubm", 100), ("dblp", 100)]
+
+
+def _bloom_pair(name, seed):
+    """(reference engine, port engine, [(query, query)]) with bloom on."""
+    if name == "random":
+        kw = dict(n_nodes=50, n_edges=150, n_preds=3, n_literals=15,
+                  seed=seed)
+        gj, gt = JD.random_graph(**kw), TD.random_graph(**kw)
+        seeds, size = (seed * 5 + 2,), 4
+    else:
+        gj = JD.DATASETS[name](scale=0.05, seed=1)
+        gt = TD.DATASETS[name](scale=0.05, seed=1)
+        seeds, size = range(seed, seed + 4), 6
+    ej = J.Dataset.build(gj).engine("spath_ni2")
+    ej.cfg.use_bloom = True
+    et = T.Dataset.build(gt).engine("spath_ni2", device="cpu")
+    et.cfg.use_bloom = True
+    qs = [(JD.random_query(gj, size=size, seed=s, exact_nodes=0.5),
+           TD.random_query(gt, size=size, seed=s, exact_nodes=0.5))
+          for s in seeds]
+    return ej, et, qs
+
+
+@pytest.mark.parametrize("name,seed", BLOOM_GRID)
+def test_bloom_engine_matches_reference(name, seed, monkeypatch):
+    """SPath(NI2) with the bloom prefilter: the reference's result sets,
+    candidates_after and to_dict() keys, cold and warm; and the prefilter
+    really rejects candidates here."""
+    ej, et, qs = _bloom_pair(name, seed)
+    removed = []
+    prefilter = tengine.bloom_prefilter
+
+    def counting(*a, **kw):
+        ok = prefilter(*a, **kw)
+        removed.append(int((~ok).sum()))
+        return ok
+    monkeypatch.setattr(tengine, "bloom_prefilter", counting)
+    for qj, qt in qs:
+        pj, pt = ej.prepare(qj), et.prepare(qt)
+        for _ in ("cold", "warm"):
+            _same_run(ej.execute_prepared(pj), et.execute_prepared(pt))
+    assert sum(removed) > 0
 
 
 def _imports(path):

@@ -16,10 +16,12 @@ import repro.kernels.fused_join as jfused
 import repro.kernels.radix_join as jrad
 from repro.kernels import ops as jops
 from repro.kernels.interval_count import interval_count_pallas
+from repro.core import signature as jsig
 from repro.core.signature import _gather_count
 from repro.core.ni_index import build_ni_index
 from repro.data import lubm_like
 
+import repro_torch.core.signature as tsig
 import repro_torch.kernels.fused_join as tfused
 import repro_torch.kernels.radix_join as trad
 from repro_torch.kernels import ops as tops, ref as tref
@@ -228,6 +230,100 @@ def test_compact_indices_is_fixed_size_nonzero(size):
     _eq(tfused.compact_indices(torch.as_tensor(mask), size, -7), want)
 
 
+# --------------------------- bitmask contains -------------------------- #
+@pytest.mark.parametrize("c,w", [(1, 1), (9, 3), (64, 8), (200, 17),
+                                 (513, 4)])
+def test_bitmask_contains_matches_pallas(c, w):
+    rng = np.random.default_rng(c * 31 + w)
+    cand = rng.integers(0, 2 ** 32, (c, w), dtype=np.uint32)
+    queries = (rng.integers(0, 2 ** 32, w, dtype=np.uint32),
+               cand[c // 2],                           # self-containment
+               cand[c // 2] & rng.integers(0, 2 ** 32, w, dtype=np.uint32),
+               np.zeros(w, np.uint32))
+    for q in queries:
+        want = np.asarray(jops.bitmask_contains(cand, q, impl="interpret"))
+        for impl in ("auto", "sorted", "ref"):
+            got = tops.bitmask_contains(cand, q, impl=impl)
+            assert got.dtype == torch.int32
+            _eq(got, want)
+    assert want.all()                       # the empty query passes all
+    ok = tops.bitmask_contains(cand, cand[c // 2]).numpy()
+    assert ok[c // 2] == 1
+
+
+def test_bitmask_contains_reads_a_row_slice_as_its_table():
+    """sigs[lo:hi] at an odd lo: the slice, not the table it views."""
+    rng = np.random.default_rng(5)
+    sigs = rng.integers(0, 2 ** 32, (40, 3), dtype=np.uint32)
+    q = sigs[9] & sigs[20]
+    want = np.asarray(jops.bitmask_contains(sigs[9:31], q, impl="interpret"))
+    _eq(tops.bitmask_contains(tops.bits32(sigs)[9:31], q), want)
+    assert want[0] == want[11] == 1
+
+
+# ----------------------------- intersect any --------------------------- #
+@pytest.mark.parametrize("p,a,b", [(1, 1, 1), (5, 7, 11), (64, 32, 64),
+                                   (257, 16, 8), (100, 130, 20)])
+def test_intersect_any_matches_pallas(p, a, b):
+    rng = np.random.default_rng(p * 7 + a * 3 + b)
+    x = np.where(rng.random((p, a)) < 0.7,
+                 rng.integers(0, 50, (p, a)), -1).astype(np.int32)
+    y = np.where(rng.random((p, b)) < 0.7,
+                 rng.integers(0, 50, (p, b)), -1).astype(np.int32)
+    x[::3] = -1                             # all-padding a-rows
+    y[1::4] = -1                            # all-padding b-rows
+    want = np.asarray(jops.intersect_any(x, y, impl="interpret"))
+    for impl in ("auto", "sorted", "ref"):
+        got = tops.intersect_any(x, y, impl=impl)
+        assert got.dtype == torch.int32
+        _eq(got, want)
+    assert not want[::3].any()
+
+
+def test_intersect_any_padding_is_never_a_hit():
+    x = np.full((3, 4), -1, np.int32)
+    want = np.asarray(jops.intersect_any(x, x, impl="interpret"))
+    for impl in ("auto", "ref"):
+        _eq(tops.intersect_any(x, x, impl=impl), want)
+    assert not want.any()
+
+
+# --------------------------- bloom signatures -------------------------- #
+def test_bloom_helpers_match_reference():
+    """build_bloom, bloom_query_sig and bloom_prefilter on NI rows of
+    lubm_like(scale=0.05): the same uint32 signatures and masks."""
+    g = lubm_like(scale=0.05, seed=1)
+    ni = build_ni_index(g, d_max=2)
+    e1 = ni.entries[1]
+    sigs = jsig.build_bloom(e1)
+    got = tsig.build_bloom(e1)
+    assert got.dtype == np.uint32
+    _eq(got, sigs)
+    rng = np.random.default_rng(11)
+    node = int(np.argmax((e1.ids >= 0).sum(axis=1)))
+    nbrs = e1.ids[node][e1.ids[node] >= 0][:2].astype(np.int64)
+    _eq(tsig.bloom_query_sig(nbrs), jsig.bloom_query_sig(nbrs))
+    # exact keywords (width-1 intervals) at distance 1, one wide interval
+    lo_iv = np.concatenate([nbrs, [0]])
+    hi_iv = np.concatenate([nbrs + 1, [g.num_nodes]])
+    need = np.ones((2, 3), np.int32)
+    sigs_dev = tops.bits32(got)
+    removed = 0
+    for lo, hi in ((0, g.num_nodes), (node - 7, node + 300), (1, 2)):
+        lo = max(lo, 0)
+        want = jsig.bloom_prefilter(
+            sigs, e1, jsig.NodeReqs(jsig.DirectionReqs(lo_iv, hi_iv, need),
+                                    None), lo, hi, impl="ref")
+        mask = tsig.bloom_prefilter(
+            sigs_dev, e1, tsig.NodeReqs(tsig.DirectionReqs(lo_iv, hi_iv,
+                                                           need), None),
+            lo, hi, device="cpu")
+        assert mask.dtype == bool
+        _eq(mask, want)
+        removed += int((~mask).sum())
+    assert removed > 0
+
+
 # ------------------------------- dispatch ------------------------------ #
 def test_dispatch_rejects_unknown_impl_and_cuda_on_cpu():
     a = _t([1, 2, 3])
@@ -237,6 +333,10 @@ def test_dispatch_rejects_unknown_impl_and_cuda_on_cpu():
         tops.merge_probe(a, a, impl="cuda")
     with pytest.raises(RuntimeError):
         tops.expand_segments(a, 8, impl="cuda")
+    with pytest.raises(RuntimeError):
+        tops.bitmask_contains(a[None, :], a, impl="cuda")
+    with pytest.raises(RuntimeError):
+        tops.intersect_any(a[None, :], a[None, :], impl="cuda")
 
 
 def test_cpu_dispatch_launches_no_kernel():
@@ -245,4 +345,7 @@ def test_cpu_dispatch_launches_no_kernel():
     tops.interval_count(_t([[1, 2, -1]]), _t([0]), _t([5]))
     tops.expand_segments(_t([1, 2]), 4)
     tops.radix_probe(_t([1]), _t([[1, 2]]))
+    tops.bitmask_contains(_t([[1, 2]]), _t([1, 0]))
+    tops.intersect_any(_t([[1, -1]]), _t([[3, 1]]))
+    assert len(before) == 6
     assert {k: v.launches for k, v in tops.cuda_kernels().items()} == before
