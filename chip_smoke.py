@@ -13,12 +13,18 @@ exits non-zero without its final line:
             time per call (torch.profiler) beside the plain version, the
             library call and the least time the card could take
             (bound_ms), and the wrapper's time per call between CUDA
-            events, host launch gaps included (call_ms)
+            events, host launch gaps included (call_ms).  The row
+            interval_count_node_check is the neighborhood check of one
+            query node in one launch over 65,536 candidates, timed beside
+            the chunked launch pattern (one count launch per chunk,
+            direction and distance) as host time per node
   main      12 RDF-h queries (the last 4 with a connection edge) through
             Dataset.engine("rdf_h") -> Engine.execute on the card, cold
             then warm; each of the four kernels of this path must have
-            launched during this phase, and results must equal the same
-            engine's on the CPU
+            launched during this phase, the check must launch
+            interval_count at most once per call cold and never warm, and
+            results must equal the same engine's on the CPU; prints the
+            shapes of every radix join
   bloom     6 queries with exact keywords through SPath(NI2) with the
             bloom prefilter (EngineConfig(check_policy="always",
             use_bloom=True)), cold then warm: bitmask_contains must have
@@ -138,6 +144,11 @@ def reset_launches() -> None:
         k.launches = 0
 
 
+def launch_counts() -> dict:
+    from repro_torch.kernels import ops
+    return {name: k.launches for name, k in ops.cuda_kernels().items()}
+
+
 def read_launches(path: str, required) -> dict:
     """Launch counts of every kernel since reset_launches(); fails when a
     kernel of `path` was launched no time."""
@@ -175,13 +186,16 @@ def kernel_phase(ds, rng) -> list:
     from repro_torch.core.connectivity import reach_sets
     from repro_torch.core.signature import bloom_query_sig, build_bloom
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     out = []
 
-    def record(name, src, replaces, fn, plain, lib, nbytes, nops, got, want):
+    def record(name, src, replaces, fn, plain, lib, nbytes, nops, got, want,
+               counter=None):
+        # counter: the launch counter of the kernel, where the row is an
+        # entry point of another kernel's source
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}",
-               "replaces": replaces}
+               "replaces": replaces, "counter": counter or name}
         row.update(compare(name, got, want))
         row["ms"] = row["kernel_ms"] = device_ms(fn)
         row["plain_ms"] = device_ms(plain)
@@ -223,8 +237,11 @@ def kernel_phase(ds, rng) -> list:
            (ops.expand_segments(csum, cap),),
            (ref.expand_segments_ref(csum, cap),))
 
-    # window_probe: A = 2^20 probe rows against real radix-partitioned
-    # bucket windows of Lmax = 16
+    # window_probe: A = 2^20 probe rows against the bucket spans of a real
+    # radix partition of B = 2^16 keys, windows of Lmax = 16.  The kernel
+    # reads the spans in place; the plain version and the library call
+    # build the [A, Lmax] window first (radix_window), as the windowed
+    # probe did
     nb_rows, lmax = 1 << 16, 16
     b_keys = torch.as_tensor(rng.integers(0, 1 << 20, nb_rows)
                              .astype(np.int32), device=dev)
@@ -232,20 +249,41 @@ def kernel_phase(ds, rng) -> list:
                                                device=dev)], dim=1)
     bits = _radix_bits(nb_rows)
     keys_p, _, edges, _ = krad.radix_partition(b_keys, b_rows, bits)
-    probe = torch.as_tensor(rng.integers(0, 1 << 20, n).astype(np.int32),
-                            device=dev)
+    probe_np = rng.integers(0, 1 << 20, n).astype(np.int32)
+    probe = torch.as_tensor(probe_np, device=dev)
     win, _ = krad.radix_window(probe, edges, keys_p, bits, lmax)
+
+    def searchsorted_pair(w):
+        # windows are ascending (each bucket span sorted, B_INVALID tail):
+        # the left and right searches give lt and lt + cnt
+        return (torch.searchsorted(w, probe[:, None], out_int32=True),
+                torch.searchsorted(w, probe[:, None], right=True,
+                                   out_int32=True))
+    # the keys_p words each probe's span holds (capped at lmax), and the
+    # words the spans cover together (each read once); the probe keys are
+    # all valid, so every bucket is a real one
+    pb = (((probe_np.astype(np.uint64) * 2654435761) & 0xFFFFFFFF)
+          >> (32 - bits)).astype(np.int64)
+    edges_np = edges.cpu().numpy().astype(np.int64)
+    span = np.minimum(edges_np[pb + 1] - edges_np[pb], lmax)
+    covered = int(span[np.unique(pb, return_index=True)[1]].sum())
     record("window_probe", "window_probe.cu",
            "src/repro/kernels/radix_join.py:135",
-           lambda: ops.radix_probe(probe, win),
-           lambda: ref.window_probe_ref(probe, win),
-           # windows are ascending (each bucket span sorted, B_INVALID
-           # tail): the left and right searches give lt and lt + cnt
-           lambda: (torch.searchsorted(win, probe[:, None], out_int32=True),
-                    torch.searchsorted(win, probe[:, None], right=True,
-                                       out_int32=True)),
-           4 * (n * lmax + 3 * n), 2 * n * lmax,
-           ops.radix_probe(probe, win), ref.window_probe_ref(probe, win))
+           lambda: ops.radix_probe(probe, keys_p, edges, bits=bits,
+                                   lmax=lmax),
+           lambda: krad.radix_probe_ref(probe, keys_p, edges, bits, lmax),
+           lambda: searchsorted_pair(
+               krad.radix_window(probe, edges, keys_p, bits, lmax)[0]),
+           4 * n + 4 * edges.shape[0] + 4 * covered + 12 * n,
+           2 * int(span.sum()),
+           ops.radix_probe(probe, keys_p, edges, bits=bits, lmax=lmax),
+           krad.radix_probe_ref(probe, keys_p, edges, bits, lmax))
+    # the windowed probe's yardstick: the searchsorted pair over a
+    # prebuilt window
+    out[-1]["library_ms_window_only"] = device_ms(
+        lambda: searchsorted_pair(win))
+    out[-1]["keys_p_words_covered"] = covered
+    del win
 
     # interval_count: C = 8192 candidates over real NI rows of the 2-hop
     # backward entry (cap 4096), J = 8 keyword intervals, with each row's
@@ -286,6 +324,53 @@ def kernel_phase(ds, rng) -> list:
           "call_ms_valid_prefix": out[-1]["call_ms"],
           "mean_row_len": valid / c})
     del ids, lens
+    torch.cuda.empty_cache()
+
+    # interval_count_node_check: the whole check of one query node in one
+    # launch (both directions, distances 1 and 2, J = 8) over 65,536
+    # contiguous candidate nodes of the real NI entries, against its plain
+    # version.  The bound counts each candidate's stored prefix in each
+    # segment once, its length and overflow bit, and the ok byte
+    segs, host_over = node_check_segments(ds, rng, j, dev)
+    nn_cand = min(1 << 16, nn)
+    c_lo = (nn - nn_cand) // 2
+    c_hi = c_lo + nn_cand
+    prefix = sum(int(s.lens[c_lo:c_hi].sum()) for s in segs)
+    node_ok = ops.interval_check(segs, c_lo, c_hi)
+    record("interval_count_node_check", "interval_count.cu",
+           "src/repro/kernels/interval_count.py:58",
+           lambda: ops.interval_check(segs, c_lo, c_hi),
+           lambda: ref.interval_check_ref(segs, c_lo, c_hi),
+           None, 4 * prefix + 5 * len(segs) * nn_cand + nn_cand,
+           2 * j * prefix, (node_ok,),
+           (ref.interval_check_ref(segs, c_lo, c_hi),),
+           counter="interval_count")
+    # beside it, host wall time per node of the one launch with its copy
+    # back, and of the chunked pattern on the same inputs: a count launch
+    # per 8,192-candidate chunk, direction and distance, each copied back
+    new_s, old_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = ops.interval_check(segs, c_lo, c_hi).cpu().numpy()
+        new_s.append(time.perf_counter() - t0)
+        before = ops.cuda_kernels()["interval_count"].launches
+        t0 = time.perf_counter()
+        old = chunked_check(segs, host_over, c_lo, c_hi)
+        old_s.append(time.perf_counter() - t0)
+        old_launches = ops.cuda_kernels()["interval_count"].launches - before
+        if not np.array_equal(got, old):
+            fail("interval_count_node_check: the one-launch verdict differs "
+                 "from the chunked launch pattern's")
+    emit({"phase": "interval_count_node_check", "candidates": nn_cand,
+          "first": c_lo, "segments": len(segs), "j": j,
+          "stored_ids": prefix, "pass_share": float(got.mean()),
+          "rows_over_32_ids": [int((s.lens[c_lo:c_hi] > 32).sum())
+                               for s in segs],
+          "host_ms_per_node": float(np.median(new_s)) * 1e3,
+          "host_ms_per_node_chunked": float(np.median(old_s)) * 1e3,
+          "launches_per_node_chunked": old_launches})
+    del segs, node_ok
+    torch.cuda.empty_cache()
 
     # bitmask_contains: the real 1-hop bloom signatures of every node
     # (W = 8 words) against the query signature of two real node ids.  The
@@ -332,8 +417,10 @@ def kernel_phase(ds, rng) -> list:
            (ops.intersect_any(ra, rb),), (ref.intersect_any_sorted(ra, rb),))
     emit({"phase": "kernels", "cap": entry.cap,
           "shapes": {"merge_probe": [n, n], "expand_segments": [n, cap],
-                     "window_probe": [n, lmax],
+                     "window_probe": {"a": n, "b": nb_rows, "bits": bits,
+                                      "lmax": lmax},
                      "interval_count": [c, entry.cap, j],
+                     "interval_count_node_check": [nn_cand, 4, j],
                      "bitmask_contains": [n_sig, w],
                      "intersect_any": [p, wa, wb]},
           "bitmask_contains_pass": sig_pass,
@@ -344,6 +431,74 @@ def kernel_phase(ds, rng) -> list:
                                           float((bb >= 0).sum(1).mean())]})
     del sigs, ra, rb
     torch.cuda.empty_cache()
+    return out
+
+
+def node_check_segments(ds, rng, j: int, dev):
+    """The CheckSegments of one query node on the real NI entries, as
+    check_interval_candidates builds them: forward then backward,
+    distances 1 and 2, J intervals each (the first the whole id range:
+    one forward neighbor needed at 1 hop and two within 2, one backward
+    neighbor within 2); and each entry's overflow bits on the host."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    nn = ds.graph.num_nodes
+    segs, host_over = [], []
+    for sign in (1, -1):
+        lo = np.sort(rng.integers(0, nn, j))
+        hi = lo + rng.integers(1, max(nn // 8, 2), j)
+        lo[0], hi[0] = 0, nn
+        need = np.zeros((2, j), np.int32)
+        need[:, 0] = (1, 2) if sign > 0 else (0, 1)
+        for d in (1, 2):
+            e = ds.ni.entries[sign * d]
+            lens = np.minimum(e.count, e.cap).astype(np.int32)
+            segs.append(ops.CheckSegment(
+                torch.as_tensor(e.ids, device=dev),
+                torch.as_tensor(lens, device=dev),
+                torch.as_tensor(e.overflow, device=dev), lo, hi,
+                need[d - 1], d == 1))
+            host_over.append(e.overflow)
+    return segs, host_over
+
+
+def chunked_check(segs, host_over, lo: int, hi: int, chunk: int = 8192):
+    """The neighborhood check with one count launch per chunk, as the
+    reference's loop runs it, for comparison: per chunk of candidates,
+    direction and distance one ops.interval_count launch and a copy of
+    its [chunk, j_pad] counts to the host, where the sums over distance,
+    the overflow bits and the verdict are taken."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    dev = segs[0].ids.device
+    n = hi - lo
+    out = np.ones(n, dtype=bool)
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        cands = np.arange(lo + start, lo + stop, dtype=np.int32)
+        cands_dev = torch.as_tensor(cands, device=dev)
+        ok = np.ones(stop - start, dtype=bool)
+        for seg, over_np in zip(segs, host_over):
+            if seg.first:
+                j = len(seg.lo)
+                j_pad = max(4, 1 << (j - 1).bit_length())
+                lo_b = np.zeros(j_pad, np.int32)
+                hi_b = np.zeros(j_pad, np.int32)
+                lo_b[:j], hi_b[:j] = seg.lo, seg.hi
+                lo_dev = torch.as_tensor(lo_b, device=dev)
+                hi_dev = torch.as_tensor(hi_b, device=dev)
+                cum = np.zeros((stop - start, j), dtype=np.int64)
+                over = np.zeros(stop - start, dtype=bool)
+            cnt = ops.interval_count(seg.ids, lo_dev, hi_dev,
+                                     cands=cands_dev, lens=seg.lens)
+            cum += cnt[:, :j].cpu().numpy()
+            over |= over_np[cands]
+            if seg.need is not None:
+                ok &= (cum >= np.asarray(seg.need)[None, :]).all(axis=1) \
+                    | over
+        out[start:stop] = ok
     return out
 
 
@@ -379,8 +534,12 @@ N_QUERIES = 12          # the last 4 carry one connection edge each
 
 
 def main_phase(ds, n_queries: int):
+    import numpy as np
     import torch
+    import repro_torch.core.engine as engine_mod
+    import repro_torch.core.matching as matching
     from repro_torch.data import random_query
+    from repro_torch.kernels import ops
 
     g = ds.graph
     gpu = ds.engine("rdf_h", device=DEVICE)
@@ -388,25 +547,69 @@ def main_phase(ds, n_queries: int):
     queries = [random_query(g, size=6, seed=100 + i,
                             n_connection=1 if i >= n_queries - 4 else 0)
                for i in range(n_queries)]
-    reset_launches()
-    torch.cuda.synchronize()
-    lat = {"cold": [], "warm": []}
-    results = {}
-    pqs = [None] * n_queries
-    t_start = time.perf_counter()
-    for run in ("cold", "warm"):
-        t_run = time.perf_counter()
-        for i, q in enumerate(queries):
-            t0 = time.perf_counter()
-            if run == "cold":                  # first sight: plan, then run
-                pqs[i] = gpu.prepare(q)
-            r = gpu.execute_prepared(pqs[i])   # rows come back to the host
-            torch.cuda.synchronize()
-            lat[run].append(time.perf_counter() - t0)
-            results[(run, i)] = r
-        lat[run + "_wall"] = time.perf_counter() - t_run
-    wall = time.perf_counter() - t_start
-    launches = read_launches("main", MAIN_KERNELS)
+
+    # read-only taps for this phase: the check calls that launched the
+    # node check, and the shapes of every radix join (a.cap, b.count from
+    # the join, bits and lmax from its probe)
+    counter = ops.cuda_kernels()["interval_count"]
+    checks = {"calls": 0, "launched": 0}
+    radix = []
+    check, join_radix, probe = (engine_mod.check_interval_candidates,
+                                matching._join_radix, ops.radix_probe)
+
+    def tap_check(*a, **kw):
+        before = counter.launches
+        ok = check(*a, **kw)
+        checks["calls"] += 1
+        checks["launched"] += counter.launches > before
+        return ok
+
+    def tap_join(a, b, *rest, **kw):
+        radix.append({"a_cap": a.cap, "b_count": b.count,
+                      "resume": kw.get("resume") is not None})
+        return join_radix(a, b, *rest, **kw)
+
+    def tap_probe(*a, **kw):
+        radix[-1].update(bits=kw["bits"], lmax=kw["lmax"])
+        return probe(*a, **kw)
+    engine_mod.check_interval_candidates = tap_check
+    matching._join_radix, ops.radix_probe = tap_join, tap_probe
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        lat = {"cold": [], "warm": []}
+        results = {}
+        pqs = [None] * n_queries
+        check_launches, n_radix, by_run = {}, {}, {}
+        t_start = time.perf_counter()
+        for run in ("cold", "warm"):
+            t_run = time.perf_counter()
+            before = counter.launches
+            start = launch_counts()
+            for i, q in enumerate(queries):
+                t0 = time.perf_counter()
+                if run == "cold":              # first sight: plan, then run
+                    pqs[i] = gpu.prepare(q)
+                r = gpu.execute_prepared(pqs[i])   # rows come back
+                torch.cuda.synchronize()
+                lat[run].append(time.perf_counter() - t0)
+                results[(run, i)] = r
+            lat[run + "_wall"] = time.perf_counter() - t_run
+            check_launches[run] = counter.launches - before
+            n_radix[run] = len(radix)
+            by_run[run] = {k: v - start[k]
+                           for k, v in launch_counts().items()}
+        wall = time.perf_counter() - t_start
+        launches = read_launches("main", MAIN_KERNELS)
+    finally:
+        engine_mod.check_interval_candidates = check
+        matching._join_radix, ops.radix_probe = join_radix, probe
+    if check_launches["cold"] > checks["launched"]:
+        fail(f"main: {check_launches['cold']} interval_count launches for "
+             f"{checks['launched']} check calls that launched")
+    if check_launches["warm"]:
+        fail(f"main: the warm run launched interval_count "
+             f"{check_launches['warm']} times")
     profile = profile_warm(gpu, pqs)
 
     # correctness: shape and id range, warm == cold, and — for the first
@@ -446,6 +649,15 @@ def main_phase(ds, n_queries: int):
         "launches": launches,
         "launches_per_query": {k: launches[k] / (2 * n_queries)
                                for k in MAIN_KERNELS},
+        "launches_by_run": by_run,
+        "check_calls": checks["calls"],
+        "check_calls_launched": checks["launched"],
+        "interval_count_launches_per_query": {
+            run: check_launches[run] / n_queries for run in ("cold", "warm")},
+        "check_ms_cold_median": float(np.median(
+            [s.check_time * 1e3 for s in stats if s.used_check])),
+        "radix_joins": {run: radix[lo:n_radix[run]] for run, lo in
+                        (("cold", 0), ("warm", n_radix["cold"]))},
         "wall_s": wall, "cpu_checked": list(cpu_checked),
         "cpu_check_s": cpu_check_s, "warm_profile": profile,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -453,7 +665,7 @@ def main_phase(ds, n_queries: int):
     emit(summary)
     conn = [(queries[i], results[("cold", i)]) for i in range(n_queries)
             if queries[i].connections]
-    return launches, conn
+    return launches, by_run, conn
 
 
 def pct(xs, p):
@@ -464,7 +676,7 @@ def pct(xs, p):
 N_BLOOM = 6
 
 
-def bloom_phase(ds) -> dict:
+def bloom_phase(ds) -> tuple:
     """SPath(NI2) with the bloom prefilter at full size, cold then warm,
     against the card's spath_ni2 engine without it."""
     import numpy as np
@@ -497,7 +709,9 @@ def bloom_phase(ds) -> dict:
         lat = {"cold": [], "warm": []}
         res = {}
         pqs = [None] * N_BLOOM
+        by_run = {}
         for run in ("cold", "warm"):
+            start = launch_counts()
             for i, q in enumerate(queries):
                 t0 = time.perf_counter()
                 if run == "cold":
@@ -505,6 +719,8 @@ def bloom_phase(ds) -> dict:
                 res[(run, i)] = bloom.execute_prepared(pqs[i])
                 torch.cuda.synchronize()
                 lat[run].append(time.perf_counter() - t0)
+            by_run[run] = {k: v - start[k]
+                           for k, v in launch_counts().items()}
         launches = read_launches("bloom", BLOOM_KERNELS)
     finally:
         engine_mod.bloom_prefilter = prefilter
@@ -523,6 +739,7 @@ def bloom_phase(ds) -> dict:
     check_plain = [r.stats.check_time * 1e3 for r in want]
     emit({"phase": "bloom", "queries": N_BLOOM,
           "launches": {k: launches[k] for k in BLOOM_KERNELS},
+          "launches_by_run": by_run,
           "prefilter_calls": len(removed),
           "prefilter_removed": sum(removed),
           "candidates_before": [r.stats.candidates_before for r in want],
@@ -535,7 +752,7 @@ def bloom_phase(ds) -> dict:
           "p50_ms_warm": pct(lat["warm"], 50),
           "latency_ms_cold": [x * 1e3 for x in lat["cold"]],
           "latency_ms_warm": [x * 1e3 for x in lat["warm"]]})
-    return launches
+    return launches, by_run
 
 
 N_PAIRS = 8192
@@ -664,15 +881,24 @@ def main() -> None:
           "seconds": time.perf_counter() - t0})
 
     rows = kernel_phase(ds, np.random.default_rng(0))
-    main_launches, conn = main_phase(ds, N_QUERIES)
-    bloom_launches = bloom_phase(ds)
+    main_launches, main_runs, conn = main_phase(ds, N_QUERIES)
+    bloom_launches, bloom_runs = bloom_phase(ds)
     conn_launches = conn_phase(ds, conn)
-    # each kernel's launches come from the phase that runs its path
+    # each kernel's launches come from the phase that runs its path, and
+    # per cold and per warm execution where the path has both
     launches = {**{k: main_launches[k] for k in MAIN_KERNELS},
                 **{k: bloom_launches[k] for k in BLOOM_KERNELS},
                 **{k: conn_launches[k] for k in CONN_KERNELS}}
+    per_run = {**{k: (main_runs, N_QUERIES) for k in MAIN_KERNELS},
+               **{k: (bloom_runs, N_BLOOM) for k in BLOOM_KERNELS}}
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        counter = row.pop("counter")
+        row["launches"] = launches[counter]
+        if counter in per_run:
+            runs, n_exec = per_run[counter]
+            for run in ("cold", "warm"):
+                row[f"launches_per_{run}_execution"] = \
+                    runs[run][counter] / n_exec
     del ds, conn
     parity_phase(args.parity_scale)
 

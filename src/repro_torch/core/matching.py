@@ -17,7 +17,7 @@ Joins are planned per pair between three strategies:
     (``kernels.fused_join``) with a single scalar host sync.
   * ``radix`` — radix-partitioned hash join (``kernels.radix_join``):
     only the build side is partitioned; probe rows are compared against
-    their bucket's window.  A's row order is preserved.
+    their bucket's span.  A's row order is preserved.
   * ``nested`` — the vectorized nested-loop join over |A|×|B| chunks.
 
 Tables are capacity-padded to powers of 2 and carry their true counts;
@@ -535,10 +535,11 @@ def _join_radix(a: Table, b: Table, shared, new, cap, row_limit,
                 probe_impl: str, telemetry: JoinTelemetry | None = None,
                 resume: _RadixResume | None = None,
                 fuse: bool = True) -> Table:
-    """Radix-partitioned hash join: partition B by hashed key, stream A
-    against per-row bucket windows.  A is never sorted and the output
-    preserves A's row order.  A hot key that would make the window matrix
-    quadratic falls back to sort-merge deterministically."""
+    """Radix-partitioned hash join: partition B by hashed key, probe each
+    A row against its bucket span (a window of lmax keys, which the CUDA
+    kernel reads in place).  A is never sorted and the output preserves
+    A's row order.  A hot key that would make the window matrix quadratic
+    falls back to sort-merge deterministically, as in the reference."""
     out_cols = a.cols + tuple(b.cols[j] for j in new)
     if resume is None:
         a_sel = tuple(s[0] for s in shared)
@@ -552,9 +553,9 @@ def _join_radix(a: Table, b: Table, shared, new, cap, row_limit,
         if a.cap * lmax > RADIX_WORK_MAX:
             return _join_sorted(a, b, shared, new, cap, row_limit,
                                 probe_impl, telemetry=telemetry, fuse=fuse)
-        win_keys, win_start = krad.radix_window(a_keys, edges, b_keys_p,
-                                                bits, lmax)
-        lt, cnt = kops.radix_probe(a_keys, win_keys, impl=probe_impl)
+        lt, cnt, win_start = kops.radix_probe(a_keys, b_keys_p, edges,
+                                              bits=bits, lmax=lmax,
+                                              impl=probe_impl)
         total = int(cnt.sum())              # second scalar sync (total)
     else:
         b_rows_p, lt, cnt = resume.b_rows_p, resume.lt, resume.cnt

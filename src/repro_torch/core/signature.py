@@ -8,10 +8,10 @@ each with a minimum count.  Counts aggregate nested intervals (the paper's
 also satisfy I, so required counts accumulate over contained intervals.
 
 Device side counts, per exact distance, the candidates' NI ids in each
-interval with the interval_count kernel (which gathers the candidates' rows
-itself), cumulative-sums over distance on the host, and compares against
-the requirements.  Overflowed NI entries auto-pass (prune only on certain
-information).
+interval, cumulative-sums over distance and compares against the
+requirements: on CUDA all of it in one launch of the interval_count
+kernel's node check per query node.  Overflowed NI entries auto-pass
+(prune only on certain information).
 
 The gStore-style bloom prefilter (``bloom_prefilter``, with
 ``EngineConfig.use_bloom``) tests 1-hop bit signatures of exact keywords
@@ -110,10 +110,6 @@ def build_requirements(query: QueryTemplate, comp: list[int], q: int,
     return NodeReqs(fwd=one_direction(True), bwd=one_direction(False))
 
 
-def _pow2(x, lo=256):
-    return max(lo, 1 << (max(int(x), 1) - 1).bit_length())
-
-
 def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
                               lo: int, hi: int, d_check: int,
                               *, impl: str = "auto",
@@ -122,14 +118,16 @@ def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
                               device) -> np.ndarray:
     """Pass mask (bool [hi-lo]) for candidates lo..hi-1 of one query node.
 
-    device: where the NI tensors live and the count runs; required, so a
+    device: where the NI tensors live and the check runs; required, so a
     caller never lands on the CPU by leaving it out.
-    device_cache: persistent {(sign, d): (ids, lens) tensors on `device`}
-    so the NI tensors, and each row's stored length min(count, cap), are
-    uploaded once per engine, not per query.  The count step
-    (``repro.core.signature._gather_count``) is ``ops.interval_count``
-    with the candidate ids: the CUDA kernel gathers the rows itself and
-    searches only each row's stored prefix."""
+    device_cache: persistent {(sign, d): (ids, lens, overflow) tensors on
+    `device`} so the NI tensors, each row's stored length min(count, cap)
+    and the overflow bits are uploaded once per engine, not per query.
+    The reference's loop over candidate chunks, directions and distances
+    (``repro.core.signature._gather_count`` and the host-side sums) is
+    one ``ops.interval_check`` over the node's segments: on CUDA one
+    launch and one copy of the verdict back to the host; on the CPU the
+    plain version, in chunks of ``chunk`` candidates."""
     n_cand = hi - lo
     out = np.ones(n_cand, dtype=bool)
     if reqs.empty or n_cand == 0:
@@ -137,50 +135,30 @@ def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
     d_check = min(d_check, ni.d_max)
     cache = device_cache if device_cache is not None else {}
 
-    def dev_ids(sign, d):
+    def dev_entry(sign, d):
         key = (sign, d)
         if key not in cache:
             e = ni.entries[sign * d]
             lens = np.minimum(e.count, e.cap).astype(np.int32)
             cache[key] = (torch.as_tensor(e.ids, device=device),
-                          torch.as_tensor(lens, device=device))
+                          torch.as_tensor(lens, device=device),
+                          torch.as_tensor(e.overflow, device=device))
         return cache[key]
 
-    # pad candidate ids to a pow2 bucket, as the reference does
-    c_pad = min(_pow2(n_cand), max(chunk, 256))
-    for start in range(0, n_cand, c_pad):
-        stop = min(start + c_pad, n_cand)
-        cands = np.full(c_pad, lo, dtype=np.int32)
-        cands[: stop - start] = np.arange(lo + start, lo + stop)
-        cands_dev = torch.as_tensor(cands, device=device)
-        ok = np.ones(stop - start, dtype=bool)
-        for sign, dreq in ((+1, reqs.fwd), (-1, reqs.bwd)):
-            if dreq is None or not dreq.need.any():
-                continue
-            j = dreq.lo.shape[0]
-            j_pad = max(4, 1 << (j - 1).bit_length())
-            lo_b = np.zeros(j_pad, np.int32)
-            hi_b = np.zeros(j_pad, np.int32)
-            lo_b[:j] = dreq.lo
-            hi_b[:j] = dreq.hi
-            lo_dev = torch.as_tensor(lo_b, device=device)
-            hi_dev = torch.as_tensor(hi_b, device=device)
-            cum = np.zeros((stop - start, j), dtype=np.int64)
-            over = np.zeros(stop - start, dtype=bool)
-            max_d = int(np.max(np.nonzero(dreq.need.any(axis=1))[0]) + 1)
-            for d in range(1, min(d_check, max_d) + 1):
-                entry = ni.entries[sign * d]
-                ids_dev, lens_dev = dev_ids(sign, d)
-                cnt = ops.interval_count(ids_dev, lo_dev, hi_dev,
-                                         cands=cands_dev, lens=lens_dev,
-                                         impl=impl)
-                cum += cnt[: stop - start, :j].cpu().numpy()
-                over |= entry.overflow[cands[: stop - start]]
-                if dreq.need[d - 1].sum() > 0:
-                    sat = (cum >= dreq.need[d - 1][None, :]).all(axis=1)
-                    ok &= sat | over
-        out[start:stop] = ok
-    return out
+    segments = []
+    for sign, dreq in ((+1, reqs.fwd), (-1, reqs.bwd)):
+        if dreq is None or not dreq.need.any():
+            continue
+        max_d = int(np.max(np.nonzero(dreq.need.any(axis=1))[0]) + 1)
+        for d in range(1, min(d_check, max_d) + 1):
+            need = dreq.need[d - 1]
+            segments.append(ops.CheckSegment(
+                *dev_entry(sign, d), lo=dreq.lo, hi=dreq.hi,
+                need=need if need.sum() > 0 else None, first=d == 1))
+    if not segments:
+        return out
+    ok = ops.interval_check(segments, lo, hi, impl=impl, chunk=chunk)
+    return ok.cpu().numpy()
 
 
 # ---------------------------------------------------------------------- #

@@ -6,4 +6,5 @@ CUDA kernel for CUDA tensors, the plain version for CPU tensors).
 """
 from . import ops, ref
 from .ops import (bitmask_contains, distinct_mask, expand_segments,
-                  interval_count, intersect_any, merge_probe, radix_probe)
+                  interval_check, interval_count, intersect_any, merge_probe,
+                  radix_probe)

@@ -80,37 +80,42 @@ def build_all(names=None) -> None:
 
 
 class CudaKernel:
-    """One C entry point of one ``csrc`` source, with a launch counter.
+    """The C entry points of one ``csrc`` source, with one launch counter.
 
     ``launches`` counts the calls of ``launch`` that reached the card: the
     one place a kernel of this package is launched, so a run can show
-    which kernels its path went through."""
+    which kernels its path went through.  A source may export further
+    entry points (``entries``: symbol -> argtypes); they count as launches
+    of the same kernel."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbol: str, argtypes: list,
+                 entries: dict | None = None):
         self.source = source
         self.symbol = symbol
-        self.argtypes = argtypes
+        self.entries = {symbol: argtypes, **(entries or {})}
         self.launches = 0
-        self._fn = None
+        self._fns = {}
 
-    def _bind(self):
-        if self._fn is None:
+    def _bind(self, symbol: str):
+        if symbol not in self._fns:
             build_all([self.source])
             lib = ctypes.CDLL(str(_lib_path(self.source)))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = [*self.argtypes, PTR]      # + the stream
+            fn = getattr(lib, symbol)
+            fn.argtypes = [*self.entries[symbol], PTR]   # + the stream
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._fns[symbol] = fn
+        return self._fns[symbol]
 
-    def launch(self, *args) -> None:
-        """Launch on PyTorch's current stream; raise if CUDA refused it."""
+    def launch(self, *args, symbol: str | None = None) -> None:
+        """Launch entry ``symbol`` (the first by default) on PyTorch's
+        current stream; raise if CUDA refused it."""
         import torch
-        fn = self._bind()
+        symbol = symbol or self.symbol
+        fn = self._bind(symbol)
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*args, ctypes.c_void_p(stream))
         if rc != 0:
-            raise RuntimeError(f"CUDA kernel {self.symbol} failed to launch "
+            raise RuntimeError(f"CUDA kernel {symbol} failed to launch "
                                f"(cudaError {rc})")
         self.launches += 1
 

@@ -20,8 +20,9 @@ import numpy as np
 import torch
 
 from . import ref as _ref
+from .ref import CheckSegment
 from .bitmask_contains import bitmask_contains_cuda
-from .interval_count import interval_count_cuda
+from .interval_count import interval_check_cuda, interval_count_cuda
 from .merge_probe import merge_probe_cuda
 from .sorted_intersect import intersect_any_cuda
 
@@ -83,14 +84,18 @@ def expand_segments(csum, cap: int, *, impl: str = "auto"):
     return _ref.expand_segments_ref(csum, cap)
 
 
-def radix_probe(a_keys, win_keys, *, impl: str = "auto"):
-    """Window probe of the radix hash join over the [A, Lmax] bucket
-    windows: (lt, cnt)."""
-    from .radix_join import window_probe_cuda
-    a_keys, win_keys = _i32(a_keys), _i32(win_keys)
+def radix_probe(a_keys, keys_p, edges, *, bits: int, lmax: int,
+                impl: str = "auto"):
+    """Probe of the radix hash join over the bucket spans of
+    ``radix_partition`` (keys_p, edges), each capped at lmax keys:
+    (lt, cnt, win_start).  On CUDA the kernel reads each span in place;
+    the plain version builds the [A, lmax] windows (radix_window) and
+    probes them (ref.window_probe_ref)."""
+    from .radix_join import radix_probe_ref, span_probe_cuda
+    a_keys, keys_p, edges = _i32(a_keys), _i32(keys_p), _i32(edges)
     if on_cuda(a_keys, impl):
-        return window_probe_cuda(a_keys, win_keys)
-    return _ref.window_probe_ref(a_keys, win_keys)
+        return span_probe_cuda(a_keys, keys_p, edges, bits, lmax)
+    return radix_probe_ref(a_keys, keys_p, edges, bits, lmax)
 
 
 def interval_count(ids, lo, hi, *, cands=None, lens=None,
@@ -111,6 +116,29 @@ def interval_count(ids, lo, hi, *, cands=None, lens=None,
         return _ref.interval_count_ref(_ref.gather_rows(ids, cands, lens),
                                        lo, hi)
     return _ref.interval_count_gather_ref(ids, cands, lo, hi, lens)
+
+
+def interval_check(segments, lo: int, hi: int, *, impl: str = "auto",
+                   chunk: int = 8192) -> torch.Tensor:
+    """ok [hi - lo] bool: the neighborhood check of one query node over
+    candidates lo..hi-1 and its ``ref.CheckSegment`` list (each
+    direction's distances in order, the first marked ``first``, one
+    interval count J per direction).  On CUDA one launch covers every
+    candidate and segment; on the CPU the plain version runs in chunks of
+    ``chunk`` candidates."""
+    segments = list(segments)
+    if not segments or not segments[0].first:
+        raise ValueError("expected segments, the first marked first")
+    for prev, seg in zip(segments, segments[1:]):
+        if not seg.first and len(seg.lo) != len(prev.lo):
+            raise ValueError("one direction's segments differ in J")
+    if any(len(s.lo) != len(s.hi) or (s.need is not None
+                                      and len(s.need) != len(s.lo))
+           for s in segments):
+        raise ValueError("expected lo, hi and need of one length")
+    if on_cuda(segments[0].ids, impl):
+        return interval_check_cuda(segments, lo, hi)
+    return _ref.interval_check_ref(segments, lo, hi, chunk)
 
 
 def bitmask_contains(cand, query, *, impl: str = "auto"):

@@ -10,10 +10,14 @@ sorted and the output keeps A's row order.
                     widest real bucket
   radix_window      gather each A row's bucket window into [A, Lmax]
                     (B_INVALID past the bucket end)
-  window_probe      per row, the count of window keys below the probe key
-                    (the match run's offset) and equal to it (its length)
-                    — the CUDA kernel ``csrc/window_probe.cu``, which
+  span probe        per row, the count of window keys below the probe key
+                    (the match run's offset) and equal to it (its length),
+                    and the window's start — the CUDA kernel
+                    ``csrc/window_probe.cu`` reads each bucket span of
+                    keys_p in place, so the window is never built; it
                     replaces ``repro.kernels.radix_join.window_probe_pallas``
+                    with the radix_window before it.  Its plain version,
+                    ``radix_probe_ref``, is radix_window + window_probe_ref
   radix_scatter     gather of the matches into output slots ordered by A
 """
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ._build import INT, PTR, CudaKernel, check_cuda_int32, ptr
 from .fused_join import B_INVALID
+from .ref import window_probe_ref
 
 # Knuth multiplicative hash: the bucket id is the top `bits` of the low
 # 32 bits of key * KNUTH (a uint32 product in the reference).
@@ -29,7 +34,8 @@ _KNUTH = 2654435761
 _MASK32 = 0xFFFFFFFF
 
 WINDOW_KERNEL = CudaKernel("window_probe", "window_probe",
-                           [PTR, PTR, INT, INT, INT, PTR, PTR])
+                           [PTR, INT, PTR, INT, PTR, INT, INT, PTR, PTR,
+                            PTR])
 
 
 def _bucket_of(keys: torch.Tensor, bits: int) -> torch.Tensor:
@@ -72,25 +78,40 @@ def radix_window(a_keys, edges, keys_p, bits: int, lmax: int):
     off = torch.arange(lmax, dtype=torch.int32, device=a_keys.device)
     pos = s[:, None] + off[None, :]
     outside = pos >= e[:, None]
+    if keys_p.shape[0] == 0:                # an empty build side: all fill
+        keys_p = torch.full((1,), B_INVALID, dtype=keys_p.dtype,
+                            device=keys_p.device)
     pos_c = torch.clamp(pos, 0, keys_p.shape[0] - 1)
     return keys_p[pos_c].masked_fill(outside, B_INVALID), s
 
 
-def window_probe_cuda(a_keys: torch.Tensor, win_keys: torch.Tensor):
-    """(lt [A], cnt [A]) int32 over contiguous int32 CUDA windows."""
-    check_cuda_int32(a_keys, win_keys)
-    n, lmax = win_keys.shape
-    if a_keys.shape[0] != n:
-        raise ValueError("a_keys and win_keys disagree on the row count")
-    group = min(32, 1 << max(lmax - 1, 0).bit_length())
-    if n * group >= 1 << 31:
-        raise ValueError("window probe too large for one launch")
-    lt = torch.empty(n, dtype=torch.int32, device=a_keys.device)
-    cnt = torch.empty(n, dtype=torch.int32, device=a_keys.device)
+def radix_probe_ref(a_keys, keys_p, edges, bits: int, lmax: int):
+    """(lt, cnt, win_start): the window probe over radix_window's
+    windows — the plain version of the span kernel."""
+    win, win_start = radix_window(a_keys, edges, keys_p, bits, lmax)
+    lt, cnt = window_probe_ref(a_keys, win)
+    return lt, cnt, win_start
+
+
+def span_probe_cuda(a_keys: torch.Tensor, keys_p: torch.Tensor,
+                    edges: torch.Tensor, bits: int, lmax: int):
+    """(lt, cnt, win_start) [A] int32 from contiguous int32 CUDA tensors:
+    probe keys, the partitioned build keys and the nb + 1 bucket edges of
+    ``radix_partition``."""
+    check_cuda_int32(a_keys, keys_p, edges)
+    if not 1 <= bits <= 30 or edges.shape != ((1 << bits) + 1,):
+        raise ValueError(f"expected 1 <= bits <= 30 and edges [2^bits + 1], "
+                         f"got bits={bits}, edges {tuple(edges.shape)}")
+    if lmax < 0:
+        raise ValueError(f"lmax must be >= 0, got {lmax}")
+    n = a_keys.shape[0]
+    lt, cnt, win_start = torch.empty((3, n), dtype=torch.int32,
+                                     device=a_keys.device)
     if n:
-        WINDOW_KERNEL.launch(ptr(a_keys), ptr(win_keys), n, lmax, group,
-                             ptr(lt), ptr(cnt))
-    return lt, cnt
+        WINDOW_KERNEL.launch(ptr(a_keys), n, ptr(keys_p), keys_p.shape[0],
+                             ptr(edges), bits, lmax, ptr(lt), ptr(cnt),
+                             ptr(win_start))
+    return lt, cnt, win_start
 
 
 def radix_scatter(a_rows, b_rows_p, lt, cnt, win_start, limit: int, *,

@@ -11,6 +11,8 @@ give the same bits.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Sequence
+
 import torch
 
 I32_MAX = (1 << 31) - 1
@@ -67,6 +69,55 @@ def interval_count_gather_ref(ids: torch.Tensor, cands: torch.Tensor,
     _gather_count``), which the interval_count kernel fuses.  With
     ``lens``, only the first lens[n] entries of row n count."""
     return interval_count_sorted(gather_rows(ids, cands, lens), lo, hi)
+
+
+class CheckSegment(NamedTuple):
+    """One (direction, distance) step of the neighborhood check of one
+    query node: the NI entry at that signed distance and the direction's
+    intervals.  Segments of one direction follow each other by distance,
+    the first with ``first`` set."""
+    ids: torch.Tensor               # [N, cap] int32 NI ids, -1 padded
+    lens: torch.Tensor | None       # [N] int32 stored lengths, or None
+    overflow: torch.Tensor          # [N] bool overflow bits
+    lo: Sequence[int]               # [J] the direction's intervals
+    hi: Sequence[int]               # [J]
+    need: Sequence[int] | None      # [J] counts needed within this
+                                    # distance; None: no check here
+    first: bool                     # the direction's first distance
+
+
+def interval_check_ref(segments: Sequence[CheckSegment], lo: int, hi: int,
+                       chunk: int = 8192) -> torch.Tensor:
+    """ok [hi - lo] bool: the neighborhood check's verdict for candidate
+    nodes lo..hi-1 (``repro.core.signature.check_interval_candidates``).
+    Per direction, the counts of each candidate's NI row in each interval
+    (interval_count_gather_ref) sum over distance into cum, the overflow
+    bits into over; a segment with need sets
+    ``ok &= all_j(cum >= need) | over``.  Candidates go in chunks of
+    ``chunk``, which bound the gathered [chunk, cap] block."""
+    dev = segments[0].ids.device
+    n = hi - lo
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    bounds = [(torch.as_tensor(s.lo, dtype=torch.int32, device=dev),
+               torch.as_tensor(s.hi, dtype=torch.int32, device=dev),
+               None if s.need is None
+               else torch.as_tensor(s.need, dtype=torch.int64, device=dev))
+              for s in segments]
+    for start in range(0, n, chunk):
+        cands = torch.arange(lo + start, lo + min(start + chunk, n),
+                             dtype=torch.int32, device=dev)
+        ok_c = ok[start: start + cands.shape[0]]
+        for seg, (l, h, need) in zip(segments, bounds):
+            if seg.first:
+                cum = torch.zeros((cands.shape[0], l.shape[0]),
+                                  dtype=torch.int64, device=dev)
+                over = torch.zeros(cands.shape[0], dtype=torch.bool,
+                                   device=dev)
+            cum += interval_count_gather_ref(seg.ids, cands, l, h, seg.lens)
+            over |= seg.overflow[cands.long()]
+            if need is not None:
+                ok_c &= (cum >= need).all(dim=1) | over
+    return ok
 
 
 def merge_probe_ref(a_keys: torch.Tensor, b_keys: torch.Tensor):

@@ -12,6 +12,7 @@ import torch
 import repro_torch.core as T
 import repro_torch.data as TD
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import radix_join as krad
 
 A_INV = (1 << 31) - 1
 B_INV = (1 << 31) - 2
@@ -54,16 +55,100 @@ def test_expand_segments_kernel(dev, n, cap):
                        ref.expand_segments_ref(csum, cap))
 
 
+def _span_probe_equal(a, keys_p, edges, bits, lmax):
+    got = ops.radix_probe(a, keys_p, edges, bits=bits, lmax=lmax)
+    want = krad.radix_probe_ref(a, keys_p, edges, bits, lmax)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+    return got
+
+
 @pytest.mark.parametrize("lmax", [1, 3, 8, 16, 33, 64])
 def test_window_probe_kernel(dev, lmax):
+    """The span kernel against its plain version (radix_window +
+    window_probe_ref) over a real radix partition: spans the lmax cap
+    cuts or not, a hot key whose span is bisected, invalid rows on both
+    sides."""
     rng = np.random.default_rng(lmax)
-    keys = _on(dev, rng.integers(0, 9, 999))
-    win = np.sort(rng.integers(0, 9, (999, lmax)), axis=1)
-    win[:, lmax // 2:][rng.random((999, lmax - lmax // 2)) < 0.3] = B_INV
-    win = _on(dev, win)
-    for g, w in zip(ops.radix_probe(keys, win),
-                    ref.window_probe_ref(keys, win)):
-        assert torch.equal(g, w)
+    b = rng.integers(0, 3000, 5000)
+    b[:300] = B_INV
+    b[300:340] = 1234                       # a span of 40+ keys
+    b = _on(dev, b)
+    bits = 9
+    keys_p, _, edges, _ = krad.radix_partition(b, b[:, None], bits)
+    a = rng.integers(0, 3500, 999)
+    a[::7] = A_INV
+    a[1], a[2] = B_INV, 1234
+    assert int((edges[1:] - edges[:-1]).max()) > 16
+    _span_probe_equal(_on(dev, a), keys_p, edges, bits, lmax)
+
+
+def test_window_probe_kernel_empty_and_invalid_sides(dev):
+    """An empty build side, all-invalid probe rows, no probe rows."""
+    bits = 4
+    a = _on(dev, np.random.default_rng(0).integers(0, 99, 300))
+    empty = _on(dev, np.zeros(0))
+    zeros = _on(dev, np.zeros((1 << bits) + 1))
+    for lmax in (8, 16):
+        _span_probe_equal(a, empty, zeros, bits, lmax)
+    b = _on(dev, np.arange(200) % 50)
+    keys_p, _, edges, _ = krad.radix_partition(b, b[:, None], bits)
+    lt, cnt, _ = _span_probe_equal(_on(dev, np.full(257, A_INV)), keys_p,
+                                   edges, bits, 16)
+    assert (cnt == 0).all() and (lt == 16).all()
+    assert _span_probe_equal(empty, keys_p, edges, bits, 16)[0].numel() == 0
+
+
+def _ni_entry(rng, n, cap, lengths):
+    """ids [n, cap] ascending rows of the given stored lengths, -1 padded,
+    with their lengths and 5 % overflow bits."""
+    ids = np.full((n, cap), -1, np.int32)
+    for r, k in enumerate(lengths):
+        ids[r, :k] = np.sort(rng.integers(0, 5000, k))
+    over = rng.random(n) < 0.05
+    return ids, np.asarray(lengths, np.int32), over
+
+
+@pytest.mark.parametrize("j", [1, 8, 17, 40])
+def test_interval_check_kernel(dev, j):
+    """The one-launch node check against its plain version: stored
+    prefixes of 0, 1, 31, 32, 33 and 4,096 ids beside short rows, J up to
+    40 (two rounds of 32), overflow rows, a segment without lengths, and
+    candidate ranges that are not a multiple of the block."""
+    rng = np.random.default_rng(j)
+    n = 3001
+    special = [0, 1, 31, 32, 33, 4096]
+    long_len = [special[i % 6] if i % 5 == 0 else int(rng.geometric(0.25))
+                for i in range(n)]
+    entries = [_ni_entry(rng, n, 8, np.minimum(rng.geometric(0.3, n), 8)),
+               _ni_entry(rng, n, 4096, long_len),
+               _ni_entry(rng, n, 40, np.minimum(rng.geometric(0.1, n), 40))]
+    dev_entries = [(_on(dev, i), _on(dev, ln), torch.as_tensor(o, device=dev))
+                   for i, ln, o in entries]
+
+    def direction(k, pairs):
+        lo = np.sort(rng.integers(0, 5000, k))
+        hi = lo + rng.integers(0, 2500, k)
+        segs = []
+        for d, (e, lens_on) in enumerate(pairs):
+            ids, lens, over = dev_entries[e]
+            need = rng.integers(0, 3, k) * (rng.random(k) < 0.4)
+            segs.append(ref.CheckSegment(
+                ids, lens if lens_on else None, over, lo, hi,
+                None if d == 0 and k % 2 else need, d == 0))
+        return segs
+
+    segs = direction(j, [(0, True), (1, True)]) + \
+        direction(max(j // 2, 1), [(2, True), (1, False)])
+    kernel = ops.cuda_kernels()["interval_count"]
+    for lo, hi in ((0, n), (5, n - 3), (17, 18), (40, 40 + 8 * 37 + 3)):
+        before = kernel.launches
+        got = ops.interval_check(segs, lo, hi)
+        assert kernel.launches == before + 1
+        want = ref.interval_check_ref(segs, lo, hi)
+        assert got.dtype == torch.bool and torch.equal(got, want)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("c,b,j", [(1, 1, 1), (500, 300, 18), (64, 4096, 8)])

@@ -19,9 +19,11 @@ from repro.kernels.interval_count import interval_count_pallas
 from repro.core import signature as jsig
 from repro.core.signature import _gather_count
 from repro.core.ni_index import build_ni_index
-from repro.data import lubm_like
+from repro.data import dblp_like, lubm_like
 
 import repro_torch.core.signature as tsig
+import repro_torch.data as TD
+from repro_torch.core.ni_index import build_ni_index as tbuild_ni_index
 import repro_torch.kernels.fused_join as tfused
 import repro_torch.kernels.radix_join as trad
 from repro_torch.kernels import ops as tops, ref as tref
@@ -137,6 +139,101 @@ def test_interval_count_padding_never_counts():
     assert (got.numpy() == 0).all()
 
 
+# ------------------------------ node check ----------------------------- #
+def _reqs(mod, rng, n_nodes, j, need_d1):
+    """Random DirectionReqs of J intervals over d_check = 2, the first of
+    them wide: need counts of 0-1 (1-2 on the wide one), at distance 1
+    only where need_d1."""
+    lo = np.sort(rng.integers(0, n_nodes, j))
+    hi = lo + rng.integers(1, max(n_nodes // 6, 2), j)
+    lo[0], hi[0] = 0, n_nodes
+    need = (rng.random((2, j)) < 0.3).astype(np.int32)
+    need[:, 0] += 1
+    need[1] = np.maximum(need[1], need[0])
+    if not need_d1:
+        need[0] = 0
+    return mod.DirectionReqs(lo=lo.astype(np.int64), hi=hi.astype(np.int64),
+                             need=need)
+
+
+# (dataset, scale, NI variant, directions, J): cap_quantile 0.9 makes rows
+# overflow their cap; the vertex-cover variant sets overflow on non-cover
+# nodes at |k| = 2; dblp at 0.35 has over 8,192 nodes, so the reference's
+# chunk boundary falls inside the candidate range
+NODE_CHECK_GRID = [("lubm", 0.05, "full", "both", 3),
+                   ("lubm", 0.05, "vc", "fwd", 16),
+                   ("dblp", 0.05, "vc", "both", 8),
+                   ("dblp", 0.05, "full", "bwd", 1),
+                   ("dblp", 0.35, "vc", "both", 16)]
+
+
+@pytest.mark.parametrize("name,scale,variant,dirs,j", NODE_CHECK_GRID)
+def test_node_check_matches_reference(name, scale, variant, dirs, j):
+    """The port's check (one ops.interval_check over the node's segments,
+    the plain version here) against repro's check_interval_candidates, on
+    NI rows with overflow, one or two directions, J up to 16."""
+    gen = {"lubm": lubm_like, "dblp": dblp_like}[name]
+    g = gen(scale=scale, seed=1)
+    ni_j = build_ni_index(g, d_max=2, variant=variant, cap_quantile=0.9)
+    ni_t = tbuild_ni_index(TD.DATASETS[name](scale=scale, seed=1), d_max=2,
+                           variant=variant, cap_quantile=0.9)
+    n = g.num_nodes
+    signs = {"fwd": (1,), "bwd": (-1,), "both": (1, -1)}[dirs]
+    assert any(ni_t.entries[s * d].overflow.any() for s in signs
+               for d in (1, 2))
+    # the vertex cover's overflow bits are not derivable from the lengths
+    e2 = ni_t.entries[2]
+    assert ((e2.count <= e2.cap) & e2.overflow).any() == (variant == "vc")
+    rng = np.random.default_rng(j + n)
+    ranges = [(0, n), (n // 3, n // 3 + 257), (5, 6)]
+    if scale > 0.3:
+        assert n > 8192
+    passed = failed = 0
+    for trial in range(3):
+        state = rng.bit_generator.state
+        made = {}
+        for mod in (jsig, tsig):
+            rng.bit_generator.state = state
+            made[mod] = mod.NodeReqs(
+                fwd=_reqs(mod, rng, n, j, trial != 1)
+                if dirs in ("fwd", "both") else None,
+                bwd=_reqs(mod, rng, n, max(j // 2, 1), trial != 2)
+                if dirs in ("bwd", "both") else None)
+        for lo, hi in ranges:
+            want = jsig.check_interval_candidates(ni_j, made[jsig], lo, hi, 2)
+            got = tsig.check_interval_candidates(ni_t, made[tsig], lo, hi, 2,
+                                                 device="cpu")
+            assert got.dtype == bool
+            _eq(got, want)
+            passed += int(want.sum())
+            failed += int((~want).sum())
+    assert passed and failed
+
+
+def test_node_check_chunks_do_not_change_the_verdict():
+    """The plain node check gives one verdict whatever its chunk."""
+    g = TD.DATASETS["dblp"](scale=0.05, seed=1)
+    ni = tbuild_ni_index(g, d_max=2, cap_quantile=0.9)
+    rng = np.random.default_rng(2)
+    segs = []
+    for sign in (1, -1):
+        r = _reqs(tsig, rng, g.num_nodes, 5, True)
+        for d in (1, 2):
+            e = ni.entries[sign * d]
+            segs.append(tref.CheckSegment(
+                _t(e.ids), _t(np.minimum(e.count, e.cap)),
+                torch.as_tensor(e.overflow), r.lo, r.hi, r.need[d - 1],
+                d == 1))
+    want = tops.interval_check(segs, 3, g.num_nodes)
+    assert 0 < int(want.sum()) < g.num_nodes - 3
+    for chunk in (1, 7, 256):
+        _eq(tops.interval_check(segs, 3, g.num_nodes, chunk=chunk), want)
+    with pytest.raises(ValueError):
+        tops.interval_check(segs[1:], 0, 4)         # no first segment
+    with pytest.raises(RuntimeError):
+        tops.interval_check(segs, 0, 4, impl="cuda")
+
+
 # --------------------------- expand segments --------------------------- #
 @pytest.mark.parametrize("n,cap", [(17, 256), (200, 1024), (1, 64),
                                    (1000, 4096)])
@@ -159,9 +256,52 @@ def test_window_probe_matches_pallas(n, lmax):
                                   B_INV, win[:, lmax // 2:])
     wl, wc = jrad.window_probe_pallas(jnp.asarray(a), jnp.asarray(win),
                                       interpret=True)
-    gl, gc = tops.radix_probe(_t(a), _t(win))
+    gl, gc = tref.window_probe_ref(_t(a), _t(win))
     _eq(gl, wl)
     _eq(gc, wc)
+
+
+def _bucket_np(keys, bits):
+    """The reference's uint32 bucket hash, in numpy."""
+    h = (keys.astype(np.uint64) * 2654435761) & 0xFFFFFFFF
+    return np.where(keys >= B_INV, 1 << bits, h >> (32 - bits))
+
+
+@pytest.mark.parametrize("n,lmax", [(40, 16), (1, 8), (33, 32), (300, 64),
+                                    (17, 3)])
+def test_span_probe_matches_pallas_window_probe(n, lmax):
+    """ops.radix_probe over the bucket spans of a radix partition against
+    the reference's radix_window + window_probe_pallas: lt, cnt and
+    win_start, with B_INVALID build rows, A_INVALID (and B_INVALID) probe
+    rows, one hot bucket whose span is exactly lmax, and other spans the
+    lmax cap cuts."""
+    rng = np.random.default_rng(n * 100 + lmax)
+    bits = 4
+    pool = np.arange(2000)
+    pb = _bucket_np(pool, bits)
+    hot = pool[pb == pb[7]]
+    b_keys = np.concatenate([
+        rng.choice(pool[pb != pb[7]], 3 * (1 << bits)),
+        np.sort(rng.choice(hot[:4], lmax)),             # span == lmax
+        np.full(5, B_INV)]).astype(np.int32)
+    b_rows = np.stack([b_keys, np.arange(b_keys.shape[0])], 1)
+    keys_p, _, edges, _ = jrad.radix_partition(
+        jnp.asarray(b_keys), jnp.asarray(b_rows.astype(np.int32)), bits)
+    assert int(edges[pb[7] + 1] - edges[pb[7]]) == lmax
+    a = rng.choice(np.concatenate([b_keys, hot[:4], pool[:50]]), n)
+    a[rng.random(n) < 0.2] = A_INV
+    a[n // 2] = hot[0]
+    a[-1] = A_INV if n > 2 else a[-1]
+    a[0] = B_INV if n > 3 else a[0]
+    a = a.astype(np.int32)
+    win, ws = jrad.radix_window(jnp.asarray(a), edges, keys_p, bits, lmax)
+    wl, wc = jrad.window_probe_pallas(jnp.asarray(a), win, interpret=True)
+    gl, gc, gs = tops.radix_probe(_t(a), _t(np.array(keys_p)),
+                                  _t(np.array(edges)), bits=bits, lmax=lmax)
+    for g, w in ((gl, wl), (gc, wc), (gs, ws)):
+        assert g.dtype == torch.int32
+        _eq(g, w)
+    assert np.asarray(wc)[np.isin(a, hot[:4])].any()
 
 
 @pytest.mark.parametrize("bits", [4, 5, 11, 16])
@@ -344,7 +484,11 @@ def test_cpu_dispatch_launches_no_kernel():
     tops.merge_probe(_t([1, 2]), _t([2, 3]))
     tops.interval_count(_t([[1, 2, -1]]), _t([0]), _t([5]))
     tops.expand_segments(_t([1, 2]), 4)
-    tops.radix_probe(_t([1]), _t([[1, 2]]))
+    tops.radix_probe(_t([1]), _t([1, 2]), _t([0] * 16 + [2]), bits=4,
+                     lmax=8)
+    tops.interval_check([tref.CheckSegment(
+        _t([[1, -1]]), None, torch.zeros(1, dtype=torch.bool), [0], [5],
+        [1], True)], 0, 1)
     tops.bitmask_contains(_t([[1, 2]]), _t([1, 0]))
     tops.intersect_any(_t([[1, -1]]), _t([[3, 1]]))
     assert len(before) == 6
