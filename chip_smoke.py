@@ -13,18 +13,34 @@ exits non-zero without its final line:
             time per call (torch.profiler) beside the plain version, the
             library call and the least time the card could take
             (bound_ms), and the wrapper's time per call between CUDA
-            events, host launch gaps included (call_ms).  The row
+            events, host launch gaps included (call_ms).  A row's times
+            come from one timer, named in its `timer`.  The merge_probe
+            rows time both kernels of merge_probe.cu, forced: the merge
+            path and the bisection kernel that small probes run
+            (yardstick_path_ms, yardstick_bisect_ms).  The row
             interval_count_node_check is the neighborhood check of one
             query node in one launch over 65,536 candidates, timed beside
             the chunked launch pattern (one count launch per chunk,
-            direction and distance) as host time per node
+            direction and distance) as host time per node.  The row
+            expand_gather is the join expand in one launch, timed beside
+            the slot-map path (expand_segments + the PyTorch gather) and the
+            library composition (torch.searchsorted + the gather);
+            merge_probe and expand_gather are also timed with L2 flushed
+            between calls (ms_l2_flushed)
   main      12 RDF-h queries (the last 4 with a connection edge) through
             Dataset.engine("rdf_h") -> Engine.execute on the card, cold
             then warm; each of the four kernels of this path must have
             launched during this phase, the check must launch
-            interval_count at most once per call cold and never warm, and
-            results must equal the same engine's on the CPU; prints the
-            shapes of every radix join
+            interval_count at most once per call cold and never warm,
+            every join expand must be exactly one expand_segments
+            launch, and results must equal the same engine's on the CPU;
+            prints the shapes of every sort-merge probe, join expand and
+            radix join.  Then merge_probe and expand_gather run again as
+            kernel rows on the real inputs of the commonest probe and
+            expand shape (merge_probe_main_shape,
+            expand_gather_main_shape), and merge_probe_shapes times the
+            merge path, the bisection kernel and the searchsorted pair in
+            turn in one trace at every probe shape, in 5 rounds
   bloom     6 queries with exact keywords through SPath(NI2) with the
             bloom prefilter (EngineConfig(check_policy="always",
             use_bloom=True)), cold then warm: bitmask_contains must have
@@ -64,6 +80,9 @@ B_INVALID = (1 << 31) - 2
 
 # where the engines run; a CPU rehearsal of the phases sets "cpu"
 DEVICE = "cuda"
+
+# timing rounds of each probe shape of the main path
+REPEATS = 5
 
 # the kernels each path must launch
 MAIN_KERNELS = ("merge_probe", "expand_segments", "window_probe",
@@ -113,23 +132,101 @@ def device_times(prof) -> dict:
     return dev
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time per call under torch.profiler: the kernels and copies
-    that fn puts on the card, without the host's launch gaps."""
+def profiled_ms(step, iters: int, kernel: str | None = None):
+    """Device time (ms) of `iters` calls of step under torch.profiler, of
+    every kernel and copy or of those whose name holds `kernel`; None
+    when three traces in a row hold no such time (the profiler missed
+    the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                step()
+            torch.cuda.synchronize()
+        ms = sum(v for k, v in device_times(prof).items()
+                 if kernel is None or kernel in k)
+        if ms > 0:
+            return ms
+    emit({"phase": "profiler_missed", "timing": kernel or "all kernels"})
+    return None
+
+
+def time_group(fns: dict, iters: int = 20, warmup: int = 3):
+    """Time per call (ms) of each callable of fns, as ({name: ms}, timer).
+    The timer is "profiler": device time under torch.profiler, the
+    kernels and copies each call puts on the card without the host's
+    launch gaps.  Where the profiler traces nothing for one of them,
+    every one of them is timed between CUDA events instead ("cuda_events",
+    host launch gaps included): times that are compared with each other
+    always come from one timer."""
+    import torch
+    ms = {}
+    for name, fn in fns.items():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t = profiled_ms(fn, iters)
+        if t is None:
+            return ({k: cuda_ms(f, iters, warmup) for k, f in fns.items()},
+                    "cuda_events")
+        ms[name] = t / iters
+    return ms, "profiler"
+
+
+def interleaved_ms(fns: dict, kernels: dict, iters: int = 20,
+                   warmup: int = 3):
+    """Device time per call (ms) of each callable of fns, all run in turn
+    in one torch.profiler trace, so that each sees the same clocks and
+    the order they are timed in cannot favour one; the trace's device
+    time is split by kernel name (kernels: key -> a substring of its
+    kernel's name, or None for the time of no other key).  None where
+    the profiler traces no time for one of them three times in a row."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                for fn in fns.values():
+                    fn()
+            torch.cuda.synchronize()
+        dev = device_times(prof)
+        ms = {k: sum(v for name, v in dev.items() if sub in name)
+              for k, sub in kernels.items() if sub is not None}
+        ms.update({k: sum(dev.values()) - sum(ms.values())
+                   for k, sub in kernels.items() if sub is None})
+        if all(v > 0 for v in ms.values()):
+            return {k: v / iters for k, v in ms.items()}
+    emit({"phase": "profiler_missed", "timing": sorted(kernels)})
+    return None
+
+
+def device_ms_l2_flushed(fn, kernel: str, iters: int = 20,
+                         warmup: int = 3):
+    """Device time per call of the kernel whose name holds `kernel`, with
+    the 50 MB L2 flushed before every call by a 64 MB write and a read of
+    it, so that the call finds neither its inputs nor dirty lines to
+    write back in L2 (the flush's own kernels are not counted).  None
+    (not measured) where the profiler traces nothing."""
+    import torch
+    flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
+
+    def flushed():
+        flush.fill_(1)
+        flush.max()
+        fn()
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(device_times(prof).values())
-    if busy <= 0:
-        fail("the profiler traced no device time")
-    return busy / iters
+    ms = profiled_ms(flushed, iters, kernel)
+    del flush
+    return None if ms is None else ms / iters
 
 
 def bound(nbytes: float, nops: float):
@@ -175,6 +272,129 @@ def compare(name, got, want) -> dict:
     return {"mismatches": mism, "max_abs_err": err}
 
 
+def record_row(out, name, src, replaces, fn, plain, lib, nbytes, nops, got,
+               want, counter=None, cold_kernel=None, yardsticks=None):
+    """One kernel row: the kernel against its plain version (exact
+    equality), times of both, of the library call and of the yardsticks
+    ({row key: callable}), all from one timer (`timer`), and the bound.
+    counter: the launch counter of the kernel, where the row is an entry
+    point of another kernel's source or another shape; cold_kernel: the
+    CUDA kernel's name, to time it again with L2 flushed between calls."""
+    row = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/kernels/csrc/{src}",
+           "replaces": replaces, "counter": counter or name}
+    row.update(compare(name, got, want))
+    group = {"ms": fn, "plain_ms": plain, **(yardsticks or {})}
+    if lib is not None:
+        group["library_ms"] = lib
+    times, row["timer"] = time_group(group)
+    row.update(times)
+    row["kernel_ms"] = row["ms"]
+    row.setdefault("library_ms", None)
+    # the wrapper's time per call with the host's launch gaps
+    row["call_ms"] = cuda_ms(fn)
+    if cold_kernel is not None:
+        row["ms_l2_flushed"] = device_ms_l2_flushed(fn, cold_kernel)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, nops)
+    out.append(row)
+    return row
+
+
+def expand_bytes(cnt, start, limit: int, ka: int, nsel: int, cap: int):
+    """Bytes the join expand must move for these inputs: the running
+    counts read once (the row base is the previous running count, so cnt
+    is not read), the start of each a-row that owns a slot below
+    min(total, limit), that a-row and the new columns of each b-row such
+    a slot pairs it with; the [cap, ka + nsel] output written once."""
+    import numpy as np
+    cnt = np.asarray(cnt, np.int64)
+    start = np.asarray(start, np.int64)
+    n = cnt.shape[0]
+    csum = np.cumsum(cnt)
+    end = min(int(csum[-1]) if n else 0, limit)
+    # each row's slots below end: max(0, min(csum, end) - base)
+    take = np.clip(np.minimum(csum, end) - (csum - cnt), 0, None)
+    used_a = int((take > 0).sum())
+    # distinct b-rows of the ranges [start, start + take)
+    lo, hi = start[take > 0], start[take > 0] + take[take > 0]
+    order = np.argsort(lo, kind="stable")
+    lo, hi = lo[order], hi[order]
+    reach = np.maximum.accumulate(hi) if hi.size else hi
+    prev = np.concatenate([[-1], reach[:-1]]) if hi.size else hi
+    used_b = int(np.clip(hi - np.maximum(lo, prev), 0, None).sum())
+    return (4 * (n + used_a * (1 + ka) + used_b * nsel + cap * (ka + nsel)),
+            used_a, used_b)
+
+
+def record_expand(out, name, a_rows, b_rows, start, cnt, limit, cap, new_sel,
+                  counter="expand_segments"):
+    """The expand_gather row: the one launch against its plain version
+    (torch.searchsorted + the gather: the library composition, so the row
+    has no library_ms of its own), beside the slot-map path
+    (yardstick_slot_map_path_ms: the expand_segments kernel's slot map,
+    then the same gather in PyTorch), at these inputs."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    csum = torch.cumsum(cnt, 0, dtype=torch.int32)
+    n, ka, nsel = a_rows.shape[0], a_rows.shape[1], len(new_sel)
+
+    def kernel():
+        return ops.expand_gather(a_rows, b_rows, start, cnt, limit, cap,
+                                 new_sel, csum=csum)
+
+    def plain():
+        return ref.expand_gather_ref(a_rows, b_rows, start, cnt, limit, cap,
+                                     new_sel, csum=csum)
+
+    def slot_map_path():
+        seg = ops.expand_segments(csum, cap)
+        t = torch.arange(cap, dtype=torch.int32, device=csum.device)
+        invalid = ~((t < csum[n - 1]) & (t < limit))[:, None]
+        i = torch.clamp(seg, max=n - 1)
+        base = csum[i] - cnt[i]
+        j = torch.clamp(start[i] + (t - base), 0, b_rows.shape[0] - 1)
+        left = a_rows[i].masked_fill(invalid, -1)
+        if not new_sel:
+            return left
+        right = b_rows[j][:, list(new_sel)].masked_fill(invalid, -1)
+        return torch.cat([left, right], dim=1)
+    compare(f"{name} (slot-map path)", (slot_map_path(),), (plain(),))
+    nbytes, used_a, used_b = expand_bytes(cnt.cpu().numpy(),
+                                          start.cpu().numpy(), limit, ka,
+                                          nsel, cap)
+    row = record_row(out, name, "expand_segments.cu",
+                     "src/repro/kernels/fused_join.py:198", kernel, plain,
+                     None, nbytes, cap * (ka + nsel), (kernel(),), (plain(),),
+                     counter=counter, cold_kernel="expand_gather_kernel",
+                     yardsticks={"yardstick_slot_map_path_ms": slot_map_path})
+    row["shape"] = {"n": n, "nb": b_rows.shape[0], "ka": ka,
+                    "new": nsel, "cap": cap, "limit": limit,
+                    "used_a_rows": used_a, "used_b_rows": used_b}
+    return row
+
+
+def record_probe(out, name, a, b, counter=None):
+    """A merge_probe row at these keys: the launch the engine makes (the
+    kernel chosen by na + nb) beside each of the two kernels forced
+    (yardstick_path_ms, yardstick_bisect_ms) and the searchsorted pair."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.merge_probe import merge_probe_cuda
+    row = record_row(
+        out, name, "merge_probe.cu", "src/repro/kernels/merge_probe.py:92",
+        lambda: ops.merge_probe(a, b), lambda: ref.merge_probe_sorted(a, b),
+        lambda: (torch.searchsorted(b, a, out_int32=True),
+                 torch.searchsorted(b, a, right=True, out_int32=True)),
+        4 * (3 * a.shape[0] + b.shape[0]), a.shape[0] + b.shape[0],
+        ops.merge_probe(a, b), ref.merge_probe_sorted(a, b),
+        counter=counter, cold_kernel="merge_probe",
+        yardsticks={f"yardstick_{m}_ms":
+                    (lambda m=m: merge_probe_cuda(a, b, m))
+                    for m in ("path", "bisect")})
+    row["shape"] = {"na": a.shape[0], "nb": b.shape[0]}
+    return row
+
+
 # ---------------------------------------------------------------------- #
 def kernel_phase(ds, rng) -> list:
     """Each kernel vs its plain version at the main path's shapes."""
@@ -189,22 +409,6 @@ def kernel_phase(ds, rng) -> list:
     dev = torch.device(DEVICE)
     out = []
 
-    def record(name, src, replaces, fn, plain, lib, nbytes, nops, got, want,
-               counter=None):
-        # counter: the launch counter of the kernel, where the row is an
-        # entry point of another kernel's source
-        row = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{src}",
-               "replaces": replaces, "counter": counter or name}
-        row.update(compare(name, got, want))
-        row["ms"] = row["kernel_ms"] = device_ms(fn)
-        row["plain_ms"] = device_ms(plain)
-        row["library_ms"] = None if lib is None else device_ms(lib)
-        # the wrapper's time per call with the host's launch gaps
-        row["call_ms"] = cuda_ms(fn)
-        row["bound_ms"], row["bound_by"] = bound(nbytes, nops)
-        out.append(row)
-
     # merge_probe: A = B = 2^20 sorted keys with duplicate runs and the
     # per-side invalid sentinels
     n = 1 << 20
@@ -214,28 +418,36 @@ def kernel_phase(ds, rng) -> list:
     b[rng.random(n) < 0.05] = B_INVALID
     a = torch.as_tensor(np.sort(a), device=dev)
     b = torch.as_tensor(np.sort(b), device=dev)
-    record("merge_probe", "merge_probe.cu",
-           "src/repro/kernels/merge_probe.py:92",
-           lambda: ops.merge_probe(a, b),
-           lambda: ref.merge_probe_sorted(a, b),
-           lambda: (torch.searchsorted(b, a, out_int32=True),
-                    torch.searchsorted(b, a, right=True, out_int32=True)),
-           4 * (3 * n + n), 2 * n * math.ceil(math.log2(n + 1)),
-           ops.merge_probe(a, b), ref.merge_probe_sorted(a, b))
+    record_probe(out, "merge_probe", a, b)
 
     # expand_segments: cap = 2^20 output slots over 2^20 running counts
     cnt = torch.as_tensor(rng.integers(0, 3, n).astype(np.int32), device=dev)
     csum = torch.cumsum(cnt, 0, dtype=torch.int32)
     cap = 1 << 20
     t = torch.arange(cap, dtype=torch.int32, device=dev)
-    record("expand_segments", "expand_segments.cu",
-           "src/repro/kernels/fused_join.py:198",
-           lambda: ops.expand_segments(csum, cap),
-           lambda: ref.expand_segments_ref(csum, cap),
-           lambda: torch.searchsorted(csum, t, right=True, out_int32=True),
-           4 * (n + cap), cap * math.ceil(math.log2(n + 1)),
-           (ops.expand_segments(csum, cap),),
-           (ref.expand_segments_ref(csum, cap),))
+    record_row(out, "expand_segments", "expand_segments.cu",
+               "src/repro/kernels/fused_join.py:198",
+               lambda: ops.expand_segments(csum, cap),
+               lambda: ref.expand_segments_ref(csum, cap),
+               lambda: torch.searchsorted(csum, t, right=True, out_int32=True),
+               4 * (n + cap), cap * math.ceil(math.log2(n + 1)),
+               (ops.expand_segments(csum, cap),),
+               (ref.expand_segments_ref(csum, cap),))
+
+    # expand_gather: the whole expand in one launch at cap = 2^20 over the
+    # same 2^20 running counts, a-rows of 3 columns, one new column of
+    # 2-column b-rows; match ranges ascending in b, as a sort-merge join
+    # gives them
+    ka, nb_exp, new_sel = 3, 1 << 20, (1,)
+    a_rows = torch.as_tensor(rng.integers(0, 1 << 30, (n, ka))
+                             .astype(np.int32), device=dev)
+    b_rows = torch.as_tensor(rng.integers(0, 1 << 30, (nb_exp, 2))
+                             .astype(np.int32), device=dev)
+    start = torch.as_tensor(np.sort(rng.integers(0, nb_exp - 2, n))
+                            .astype(np.int32), device=dev)
+    record_expand(out, "expand_gather", a_rows, b_rows, start, cnt, cap, cap,
+                  new_sel)
+    del a_rows, b_rows, start
 
     # window_probe: A = 2^20 probe rows against the bucket spans of a real
     # radix partition of B = 2^16 keys, windows of Lmax = 16.  The kernel
@@ -267,21 +479,21 @@ def kernel_phase(ds, rng) -> list:
     edges_np = edges.cpu().numpy().astype(np.int64)
     span = np.minimum(edges_np[pb + 1] - edges_np[pb], lmax)
     covered = int(span[np.unique(pb, return_index=True)[1]].sum())
-    record("window_probe", "window_probe.cu",
-           "src/repro/kernels/radix_join.py:135",
-           lambda: ops.radix_probe(probe, keys_p, edges, bits=bits,
-                                   lmax=lmax),
-           lambda: krad.radix_probe_ref(probe, keys_p, edges, bits, lmax),
-           lambda: searchsorted_pair(
-               krad.radix_window(probe, edges, keys_p, bits, lmax)[0]),
-           4 * n + 4 * edges.shape[0] + 4 * covered + 12 * n,
-           2 * int(span.sum()),
-           ops.radix_probe(probe, keys_p, edges, bits=bits, lmax=lmax),
-           krad.radix_probe_ref(probe, keys_p, edges, bits, lmax))
-    # the windowed probe's yardstick: the searchsorted pair over a
-    # prebuilt window
-    out[-1]["library_ms_window_only"] = device_ms(
-        lambda: searchsorted_pair(win))
+    record_row(out, "window_probe", "window_probe.cu",
+               "src/repro/kernels/radix_join.py:135",
+               lambda: ops.radix_probe(probe, keys_p, edges, bits=bits,
+                                       lmax=lmax),
+               lambda: krad.radix_probe_ref(probe, keys_p, edges, bits, lmax),
+               lambda: searchsorted_pair(
+                   krad.radix_window(probe, edges, keys_p, bits, lmax)[0]),
+               4 * n + 4 * edges.shape[0] + 4 * covered + 12 * n,
+               2 * int(span.sum()),
+               ops.radix_probe(probe, keys_p, edges, bits=bits, lmax=lmax),
+               krad.radix_probe_ref(probe, keys_p, edges, bits, lmax),
+               # the windowed probe's yardstick: the searchsorted pair
+               # over a prebuilt window
+               yardsticks={"library_ms_window_only":
+                           lambda: searchsorted_pair(win)})
     out[-1]["keys_p_words_covered"] = covered
     del win
 
@@ -304,22 +516,24 @@ def kernel_phase(ds, rng) -> list:
     row_len = lens_np[cand_np].astype(np.int64)
     valid = int(row_len.sum())
     searches = int(np.ceil(np.log2(row_len + 1)).sum())
-    record("interval_count", "interval_count.cu",
-           "src/repro/kernels/interval_count.py:58",
-           lambda: ops.interval_count(ids, lo, hi, cands=cands, lens=lens),
-           lambda: ref.interval_count_gather_ref(ids, cands, lo, hi, lens),
-           None, 8 * c + 4 * valid + 8 * j + 4 * c * j, 2 * j * searches,
-           (ops.interval_count(ids, lo, hi, cands=cands, lens=lens),),
-           (ref.interval_count_gather_ref(ids, cands, lo, hi, lens),))
     # the same kernel searching whole rows (no lens), timed in the same
     # run so the valid-prefix search is compared with it on one card
     compare("interval_count_full_rows",
             (ops.interval_count(ids, lo, hi, cands=cands),),
             (ref.interval_count_gather_ref(ids, cands, lo, hi),))
+
     def full_rows():
         return ops.interval_count(ids, lo, hi, cands=cands)
+    record_row(out, "interval_count", "interval_count.cu",
+               "src/repro/kernels/interval_count.py:58",
+               lambda: ops.interval_count(ids, lo, hi, cands=cands, lens=lens),
+               lambda: ref.interval_count_gather_ref(ids, cands, lo, hi, lens),
+               None, 8 * c + 4 * valid + 8 * j + 4 * c * j, 2 * j * searches,
+               (ops.interval_count(ids, lo, hi, cands=cands, lens=lens),),
+               (ref.interval_count_gather_ref(ids, cands, lo, hi, lens),),
+               yardsticks={"full_rows_ms": full_rows})
     emit({"phase": "interval_count_full_rows",
-          "ms": device_ms(full_rows), "call_ms": cuda_ms(full_rows),
+          "ms": out[-1]["full_rows_ms"], "call_ms": cuda_ms(full_rows),
           "ms_valid_prefix": out[-1]["ms"],
           "call_ms_valid_prefix": out[-1]["call_ms"],
           "mean_row_len": valid / c})
@@ -337,14 +551,14 @@ def kernel_phase(ds, rng) -> list:
     c_hi = c_lo + nn_cand
     prefix = sum(int(s.lens[c_lo:c_hi].sum()) for s in segs)
     node_ok = ops.interval_check(segs, c_lo, c_hi)
-    record("interval_count_node_check", "interval_count.cu",
-           "src/repro/kernels/interval_count.py:58",
-           lambda: ops.interval_check(segs, c_lo, c_hi),
-           lambda: ref.interval_check_ref(segs, c_lo, c_hi),
-           None, 4 * prefix + 5 * len(segs) * nn_cand + nn_cand,
-           2 * j * prefix, (node_ok,),
-           (ref.interval_check_ref(segs, c_lo, c_hi),),
-           counter="interval_count")
+    record_row(out, "interval_count_node_check", "interval_count.cu",
+               "src/repro/kernels/interval_count.py:58",
+               lambda: ops.interval_check(segs, c_lo, c_hi),
+               lambda: ref.interval_check_ref(segs, c_lo, c_hi),
+               None, 4 * prefix + 5 * len(segs) * nn_cand + nn_cand,
+               2 * j * prefix, (node_ok,),
+               (ref.interval_check_ref(segs, c_lo, c_hi),),
+               counter="interval_count")
     # beside it, host wall time per node of the one launch with its copy
     # back, and of the chunked pattern on the same inputs: a count launch
     # per 8,192-candidate chunk, direction and distance, each copied back
@@ -386,13 +600,13 @@ def kernel_phase(ds, rng) -> list:
     qsig = ops.bits32(qsig_np).to(dev)
     miss = (qsig_np[None, :] & ~sigs_np) != 0
     words = int(np.where(miss.any(1), miss.argmax(1) + 1, w).sum())
-    record("bitmask_contains", "bitmask_contains.cu",
-           "src/repro/kernels/bitmask_contains.py:39",
-           lambda: ops.bitmask_contains(sigs, qsig),
-           lambda: ref.bitmask_contains_ref(sigs, qsig),
-           None, 4 * words + 4 * w + 4 * n_sig, 2 * words,
-           (ops.bitmask_contains(sigs, qsig),),
-           (ref.bitmask_contains_ref(sigs, qsig),))
+    record_row(out, "bitmask_contains", "bitmask_contains.cu",
+               "src/repro/kernels/bitmask_contains.py:39",
+               lambda: ops.bitmask_contains(sigs, qsig),
+               lambda: ref.bitmask_contains_ref(sigs, qsig),
+               None, 4 * words + 4 * w + 4 * n_sig, 2 * words,
+               (ops.bitmask_contains(sigs, qsig),),
+               (ref.bitmask_contains_ref(sigs, qsig),))
     sig_pass = int((~miss.any(1)).sum())
 
     # intersect_any: real reach sets of two sets of 1,024 random nodes,
@@ -408,15 +622,17 @@ def kernel_phase(ds, rng) -> list:
     wa, wb = fa.shape[1], bb.shape[1]
     found = np.stack([np.isin(bb[i], fa[i][fa[i] >= 0]) for i in range(p)])
     b_read = np.where(found.any(1), found.argmax(1) + 1, wb)
-    record("intersect_any", "intersect_any.cu",
-           "src/repro/kernels/sorted_intersect.py:47",
-           lambda: ops.intersect_any(ra, rb),
-           lambda: ref.intersect_any_sorted(ra, rb),
-           None, 4 * (p * wa + int(b_read.sum())) + 4 * p,
-           int(((fa >= 0).sum(1) * b_read).sum()),
-           (ops.intersect_any(ra, rb),), (ref.intersect_any_sorted(ra, rb),))
+    record_row(out, "intersect_any", "intersect_any.cu",
+               "src/repro/kernels/sorted_intersect.py:47",
+               lambda: ops.intersect_any(ra, rb),
+               lambda: ref.intersect_any_sorted(ra, rb),
+               None, 4 * (p * wa + int(b_read.sum())) + 4 * p,
+               int(((fa >= 0).sum(1) * b_read).sum()),
+               (ops.intersect_any(ra, rb),),
+               (ref.intersect_any_sorted(ra, rb),))
     emit({"phase": "kernels", "cap": entry.cap,
           "shapes": {"merge_probe": [n, n], "expand_segments": [n, cap],
+                     "expand_gather": out[2]["shape"],
                      "window_probe": {"a": n, "b": nb_rows, "bits": bits,
                                       "lmax": lmax},
                      "interval_count": [c, entry.cap, j],
@@ -549,13 +765,37 @@ def main_phase(ds, n_queries: int):
                for i in range(n_queries)]
 
     # read-only taps for this phase: the check calls that launched the
-    # node check, and the shapes of every radix join (a.cap, b.count from
-    # the join, bits and lmax from its probe)
+    # node check, the shapes of every radix join (a.cap, b.count from
+    # the join, bits and lmax from its probe), of every sort-merge probe
+    # and of every join expand, whose expand_segments-counter launches
+    # are counted call by call
     counter = ops.cuda_kernels()["interval_count"]
+    expand_counter = ops.cuda_kernels()["expand_segments"]
     checks = {"calls": 0, "launched": 0}
-    radix = []
+    radix, probes, expands = [], [], []
+    inputs = {"probe": {}, "expand": {}}     # first inputs of each shape
     check, join_radix, probe = (engine_mod.check_interval_candidates,
                                 matching._join_radix, ops.radix_probe)
+    merge, expand = ops.merge_probe, ops.expand_gather
+
+    def tap_merge(a, b, **kw):
+        start, cnt = merge(a, b, **kw)
+        shape = (a.shape[0], b.shape[0])
+        probes.append({"shape": shape, "cnt": cnt})
+        inputs["probe"].setdefault(shape, (a, b))
+        return start, cnt
+
+    def tap_expand(a_rows, b_rows, start, cnt, limit, cap, new_sel=(),
+                   **kw):
+        before = expand_counter.launches
+        rows = expand(a_rows, b_rows, start, cnt, limit, cap, new_sel, **kw)
+        shape = (a_rows.shape[0], cap, a_rows.shape[1], len(new_sel))
+        expands.append({"shape": shape,
+                        "path": sys._getframe(1).f_code.co_name,
+                        "launches": expand_counter.launches - before})
+        inputs["expand"].setdefault(shape, (a_rows, b_rows, start, cnt,
+                                            limit, cap, tuple(new_sel)))
+        return rows
 
     def tap_check(*a, **kw):
         before = counter.launches
@@ -574,6 +814,7 @@ def main_phase(ds, n_queries: int):
         return probe(*a, **kw)
     engine_mod.check_interval_candidates = tap_check
     matching._join_radix, ops.radix_probe = tap_join, tap_probe
+    ops.merge_probe, ops.expand_gather = tap_merge, tap_expand
     try:
         reset_launches()
         torch.cuda.synchronize()
@@ -581,6 +822,7 @@ def main_phase(ds, n_queries: int):
         results = {}
         pqs = [None] * n_queries
         check_launches, n_radix, by_run = {}, {}, {}
+        n_probes, n_expands = {}, {}
         t_start = time.perf_counter()
         for run in ("cold", "warm"):
             t_run = time.perf_counter()
@@ -597,6 +839,7 @@ def main_phase(ds, n_queries: int):
             lat[run + "_wall"] = time.perf_counter() - t_run
             check_launches[run] = counter.launches - before
             n_radix[run] = len(radix)
+            n_probes[run], n_expands[run] = len(probes), len(expands)
             by_run[run] = {k: v - start[k]
                            for k, v in launch_counts().items()}
         wall = time.perf_counter() - t_start
@@ -604,12 +847,23 @@ def main_phase(ds, n_queries: int):
     finally:
         engine_mod.check_interval_candidates = check
         matching._join_radix, ops.radix_probe = join_radix, probe
+        ops.merge_probe, ops.expand_gather = merge, expand
     if check_launches["cold"] > checks["launched"]:
         fail(f"main: {check_launches['cold']} interval_count launches for "
              f"{checks['launched']} check calls that launched")
     if check_launches["warm"]:
         fail(f"main: the warm run launched interval_count "
              f"{check_launches['warm']} times")
+    # every join expand, cold and warm, was one launch of the expand
+    # kernel, and the phase launched it for nothing else
+    not_one = [e for e in expands if e["launches"] != 1]
+    if not_one:
+        fail(f"main: {len(not_one)} join expands were not exactly one "
+             f"expand_segments launch: {not_one[:3]}")
+    if by_run["cold"]["expand_segments"] + by_run["warm"]["expand_segments"] \
+            != len(expands):
+        fail(f"main: {len(expands)} join expands, "
+             f"{launches['expand_segments']} expand_segments launches")
     profile = profile_warm(gpu, pqs)
 
     # correctness: shape and id range, warm == cold, and — for the first
@@ -658,6 +912,16 @@ def main_phase(ds, n_queries: int):
             [s.check_time * 1e3 for s in stats if s.used_check])),
         "radix_joins": {run: radix[lo:n_radix[run]] for run, lo in
                         (("cold", 0), ("warm", n_radix["cold"]))},
+        # [na, nb, match total] of every sort-merge probe and [n, cap, ka,
+        # new, the calling join path] of every join expand, by run
+        "merge_probes": {run: [[*p["shape"], int(p["cnt"].sum())]
+                               for p in probes[lo:n_probes[run]]]
+                         for run, lo in (("cold", 0),
+                                         ("warm", n_probes["cold"]))},
+        "join_expands": {run: [[*e["shape"], e["path"]]
+                               for e in expands[lo:n_expands[run]]]
+                         for run, lo in (("cold", 0),
+                                         ("warm", n_expands["cold"]))},
         "wall_s": wall, "cpu_checked": list(cpu_checked),
         "cpu_check_s": cpu_check_s, "warm_profile": profile,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -665,7 +929,70 @@ def main_phase(ds, n_queries: int):
     emit(summary)
     conn = [(queries[i], results[("cold", i)]) for i in range(n_queries)
             if queries[i].connections]
-    return launches, by_run, conn
+    # the inputs of the commonest probe and expand shapes, for the kernel
+    # rows at the main path's shapes
+    common = {"probe_all": {
+        shape: (*ab, [p["shape"] for p in probes].count(shape))
+        for shape, ab in inputs["probe"].items()}}
+    for kind, calls in (("probe", probes), ("expand", expands)):
+        shapes = [c["shape"] for c in calls]
+        if shapes:
+            top = max(inputs[kind], key=shapes.count)
+            common[kind] = (inputs[kind][top], shapes.count(top))
+    return launches, by_run, conn, common
+
+
+def main_shape_rows(common) -> list:
+    """merge_probe and expand_gather again, on the real inputs of the
+    commonest sort-merge probe and join expand of the main phase."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.merge_probe import BISECT_BELOW, merge_probe_cuda
+    out = []
+    if "probe" in common:
+        (a, b), calls = common["probe"]
+        row = record_probe(out, "merge_probe_main_shape", a, b,
+                           counter="merge_probe")
+        row["shape"]["calls_of_this_shape"] = calls
+    # every probe shape of the main phase, on its first inputs: the merge
+    # path, the bisection kernel and the searchsorted pair, in turn in one
+    # trace, in REPEATS rounds (small shapes' times vary from one trace to
+    # the next); bisect_over_path is the median of the rounds' ratios
+    shapes = []
+    kernels = {"path": "merge_probe_kernel",
+               "bisect": "merge_probe_bisect_kernel", "pair": None}
+    for (na, nb), (a, b, calls) in sorted(common["probe_all"].items()):
+        want = ref.merge_probe_sorted(a, b)
+        group = {}
+        for m in ("path", "bisect"):
+            compare(f"merge_probe {na}x{nb} {m}", merge_probe_cuda(a, b, m),
+                    want)
+            group[m] = lambda m=m: merge_probe_cuda(a, b, m)
+        group["pair"] = lambda: (
+            torch.searchsorted(b, a, out_int32=True),
+            torch.searchsorted(b, a, right=True, out_int32=True))
+        rounds = [r for r in (interleaved_ms(group, kernels)
+                              for _ in range(REPEATS)) if r is not None]
+        shape = {"na": na, "nb": nb, "calls": calls, "rounds": len(rounds),
+                 "engine_runs": "bisect" if na + nb < BISECT_BELOW
+                 else "path"}
+        for k in group:
+            ms = [r[k] for r in rounds]
+            shape[f"{k}_ms"] = float(np.median(ms)) if ms else None
+            shape[f"{k}_ms_range"] = [min(ms), max(ms)] if ms else None
+        shape["bisect_over_path"] = float(np.median(
+            [r["bisect"] / r["path"] for r in rounds])) if rounds else None
+        shapes.append(shape)
+    emit({"phase": "merge_probe_shapes", "repeats": REPEATS,
+          "shapes": shapes})
+    if "expand" in common:
+        (a_rows, b_rows, start, cnt, limit, cap, new_sel), calls = \
+            common["expand"]
+        row = record_expand(out, "expand_gather_main_shape", a_rows, b_rows,
+                            start, cnt, limit, cap, new_sel)
+        row["shape"]["calls_of_this_shape"] = calls
+    return out
 
 
 def pct(xs, p):
@@ -881,7 +1208,9 @@ def main() -> None:
           "seconds": time.perf_counter() - t0})
 
     rows = kernel_phase(ds, np.random.default_rng(0))
-    main_launches, main_runs, conn = main_phase(ds, N_QUERIES)
+    main_launches, main_runs, conn, common = main_phase(ds, N_QUERIES)
+    rows += main_shape_rows(common)
+    del common
     bloom_launches, bloom_runs = bloom_phase(ds)
     conn_launches = conn_phase(ds, conn)
     # each kernel's launches come from the phase that runs its path, and

@@ -12,9 +12,10 @@ Joins are planned per pair between three strategies:
   * ``sorted`` — sort-merge equi-join: shared join columns are packed into
     one int32 key, both sides are sorted once, per-row match ranges come
     from the merge-probe kernel and matches are expanded with a
-    segment-offset gather.  When neither side has a cached sorted run,
-    the whole pack→sort→probe→expand chain runs fused
-    (``kernels.fused_join``) with a single scalar host sync.
+    segment-offset gather (``kernels.ops.expand_gather``, the expand of
+    all three join paths: one CUDA launch on the card).  When neither
+    side has a cached sorted run, the whole pack→sort→probe→expand chain
+    runs fused (``kernels.fused_join``) with a single scalar host sync.
   * ``radix`` — radix-partitioned hash join (``kernels.radix_join``):
     only the build side is partitioned; probe rows are compared against
     their bucket's span.  A's row order is preserved.
@@ -328,27 +329,6 @@ def _sort_rows_by_key(keys, rows):
     return keys[order], rows[order]
 
 
-def _merge_expand(a_rows_s, b_rows_s, start, cnt, limit: int, cap: int,
-                  new_sel, has_new):
-    """Expand per-a-row match ranges into output rows.
-
-    Output slot t belongs to sorted a-row i = searchsorted(cumsum(cnt), t)
-    and pairs it with sorted b-row start[i] + (t - prefix[i])."""
-    a_cap = a_rows_s.shape[0]
-    csum = torch.cumsum(cnt, 0, dtype=torch.int32)
-    t = torch.arange(cap, dtype=torch.int32, device=csum.device)
-    seg = torch.searchsorted(csum, t, right=True, out_int32=True)
-    invalid = ~((t < csum[-1]) & (t < limit))[:, None]
-    i = torch.clamp(seg, max=a_cap - 1)
-    base = csum[i] - cnt[i]
-    j = torch.clamp(start[i] + (t - base), 0, b_rows_s.shape[0] - 1)
-    left = a_rows_s[i].masked_fill(invalid, -1)
-    if has_new:
-        right = b_rows_s[j][:, list(new_sel)].masked_fill(invalid, -1)
-        return torch.cat([left, right], dim=1)
-    return left
-
-
 @dataclass
 class _ProbeResume:
     """Sort+probe results carried on CapacityOverflow so the exact-size
@@ -467,8 +447,8 @@ def _join_sorted(a: Table, b: Table, shared, new, cap, row_limit,
         clipped = np.clip(out_count - (csum - cnt_np.astype(np.int64)),
                           0, cnt_np.astype(np.int64))
         cnt = _i32(clipped, cnt.device)
-    rows = _merge_expand(a_rows_s, b_rows_s, start, cnt, out_count,
-                         cap=cap, new_sel=tuple(new), has_new=bool(new))
+    rows = kops.expand_gather(a_rows_s, b_rows_s, start, cnt, out_count,
+                              cap, tuple(new))
     # The expand emits output slots in sorted-a order: the result is
     # lexicographically ordered by the join key and inherits it.
     return Table(cols=out_cols, rows=rows, count=out_count,
@@ -501,8 +481,8 @@ def _join_sorted_fused(a: Table, b: Table, a_sel, b_sel, key_cols,
     truncated = row_limit is not None and total > row_limit
     if cap is None:
         cap = _pow2(out_count)
-        rows = _merge_expand(a_rows_s, b_rows_s, start, cnt, out_count,
-                             cap=cap, new_sel=tuple(new), has_new=bool(new))
+        rows = kops.expand_gather(a_rows_s, b_rows_s, start, cnt,
+                                  out_count, cap, tuple(new))
     elif out_count > cap:
         err = CapacityOverflow(out_count)
         err.resume = _ProbeResume(a_rows_s, b_rows_s, start, cnt,

@@ -5,6 +5,6 @@ plain PyTorch version in ``ref.py``; ``ops.py`` dispatches by device (the
 CUDA kernel for CUDA tensors, the plain version for CPU tensors).
 """
 from . import ops, ref
-from .ops import (bitmask_contains, distinct_mask, expand_segments,
-                  interval_check, interval_count, intersect_any, merge_probe,
-                  radix_probe)
+from .ops import (bitmask_contains, distinct_mask, expand_gather,
+                  expand_segments, interval_check, interval_count,
+                  intersect_any, merge_probe, radix_probe)

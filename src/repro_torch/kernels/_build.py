@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports plain C entry points (device pointers and
 sizes in, ``cudaGetLastError()`` out).  On first use it is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under ``build/``
-next to this file — named by a digest of the source, so an edited kernel
-is never served from a stale library — and loaded with ``ctypes``.
+next to this file — named by a digest of the source and of the shared
+``csrc/*.cuh`` headers, so an edited kernel is never served from a stale
+library — and loaded with ``ctypes``.
 Nothing here runs at import time: CPU-only installs import the package
 and never reach ``nvcc``.
 
@@ -41,7 +42,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count too: a source that includes one is rebuilt
+    # when it changes
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"{name}-{digest[:12]}.so"
 

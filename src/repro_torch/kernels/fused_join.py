@@ -22,12 +22,15 @@ sides gives the dense-rank keys AND both sides' sorted orders.
 PyTorch has no lexsort, so ``_lexsort`` chains stable argsorts from the
 last key to the first; every argsort here is stable, as ``jnp.argsort``
 is, because row order is part of the contract (sort-order tags).  The
-probe runs on the merge_probe kernel and the slot-to-row map of the
-expand on the expand_segments kernel (``csrc/expand_segments.cu``, which
-replaces ``repro.kernels.fused_join.expand_segments_pallas``) for CUDA
-tensors, on their plain versions for CPU tensors.
+probe runs on the merge_probe kernel and the expand on the expand_gather
+entry of the expand_segments kernel (``csrc/expand_segments.cu``, which
+replaces ``repro.kernels.fused_join.expand_segments_pallas`` and the row
+gather after it; the staged and radix joins expand through it too) for
+CUDA tensors, on their plain versions for CPU tensors.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -41,8 +44,13 @@ from .ref import distinct_mask_sorted
 A_INVALID = (1 << 31) - 1
 B_INVALID = (1 << 31) - 2
 
-EXPAND_KERNEL = CudaKernel("expand_segments", "expand_segments",
-                           [PTR, INT, INT, PTR])
+# both entries of csrc/expand_segments.cu count as launches of one kernel
+EXPAND_KERNEL = CudaKernel(
+    "expand_segments", "expand_segments", [PTR, INT, INT, PTR],
+    entries={"expand_gather": [PTR, INT, INT, PTR, INT, INT, PTR, PTR, INT,
+                               INT, PTR, INT, PTR]})
+MAX_NEW_COLS = 256          # MAX_SEL of csrc/expand_segments.cu
+_I32_MAX = (1 << 31) - 1
 
 
 def expand_segments_cuda(csum: torch.Tensor, cap: int) -> torch.Tensor:
@@ -52,6 +60,32 @@ def expand_segments_cuda(csum: torch.Tensor, cap: int) -> torch.Tensor:
     if cap:
         EXPAND_KERNEL.launch(ptr(csum), csum.shape[0], cap, ptr(seg))
     return seg
+
+
+def expand_gather_cuda(a_rows: torch.Tensor, b_rows: torch.Tensor,
+                       start: torch.Tensor, csum: torch.Tensor, limit: int,
+                       cap: int, new_sel) -> torch.Tensor:
+    """The whole join expand in one launch: [cap, ka + len(new_sel)] int32
+    from contiguous int32 CUDA tensors a_rows [n, ka], b_rows [nb, kb],
+    start [n] and the running counts csum [n]."""
+    check_cuda_int32(a_rows, b_rows, start, csum)
+    (n, ka), (nb, kb) = a_rows.shape, b_rows.shape
+    new_sel = [int(c) for c in new_sel]
+    if start.shape != (n,) or csum.shape != (n,):
+        raise ValueError(f"expected start and csum [{n}], got "
+                         f"{tuple(start.shape)} and {tuple(csum.shape)}")
+    if len(new_sel) > MAX_NEW_COLS or any(not 0 <= c < kb for c in new_sel):
+        raise ValueError(f"expected at most {MAX_NEW_COLS} columns of "
+                         f"b_rows [*, {kb}], got {new_sel}")
+    out = torch.empty((cap, ka + len(new_sel)), dtype=torch.int32,
+                      device=a_rows.device)
+    if cap:
+        sel = (ctypes.c_int * max(len(new_sel), 1))(*new_sel)
+        EXPAND_KERNEL.launch(
+            ptr(a_rows), n, ka, ptr(b_rows), nb, kb, ptr(start), ptr(csum),
+            max(0, min(int(limit), _I32_MAX)), cap, ctypes.cast(sel, PTR),
+            len(new_sel), ptr(out), symbol="expand_gather")
+    return out
 
 
 def compact_indices(mask: torch.Tensor, size: int,
@@ -150,21 +184,10 @@ def _expand(a_rows_s, b_rows_s, start, cnt, limit: int, cap: int,
             new_sel, has_new):
     """Segment-offset expansion of (start, cnt) match ranges, returning
     the match total as a device scalar byproduct."""
-    a_cap = a_rows_s.shape[0]
     csum = torch.cumsum(cnt, 0, dtype=torch.int32)
-    total = csum[a_cap - 1]
-    seg = ops.expand_segments(csum, cap)
-    t = torch.arange(cap, dtype=torch.int32, device=csum.device)
-    invalid = ~((t < total) & (t < limit))[:, None]
-    i = torch.clamp(seg, max=a_cap - 1)
-    base = csum[i] - cnt[i]
-    # offset as t - base (subtraction form), as the reference writes it
-    j = torch.clamp(start[i] + (t - base), 0, b_rows_s.shape[0] - 1)
-    left = a_rows_s[i].masked_fill(invalid, -1)
-    if has_new:
-        right = b_rows_s[j][:, list(new_sel)].masked_fill(invalid, -1)
-        return torch.cat([left, right], dim=1), total
-    return left, total
+    rows = ops.expand_gather(a_rows_s, b_rows_s, start, cnt, limit, cap,
+                             new_sel if has_new else (), csum=csum)
+    return rows, csum[a_rows_s.shape[0] - 1]
 
 
 # --------------------------- fused entry points ------------------------ #

@@ -84,6 +84,25 @@ def expand_segments(csum, cap: int, *, impl: str = "auto"):
     return _ref.expand_segments_ref(csum, cap)
 
 
+def expand_gather(a_rows, b_rows, start, cnt, limit: int, cap: int,
+                  new_sel=(), *, csum=None, impl: str = "auto"):
+    """The join expand of every join strategy: [cap, ka + len(new_sel)]
+    rows, slot t < min(total, limit) pairing the a-row that owns it with
+    its b-row (columns new_sel), the rest -1 (``ref.expand_gather_ref``).
+    ``csum`` is cumsum(cnt) when the caller has it; the total is read from
+    it on the device.  On CUDA one launch writes the whole output."""
+    from .fused_join import expand_gather_cuda
+    a_rows, b_rows = _i32(a_rows), _i32(b_rows)
+    start, cnt = _i32(start), _i32(cnt)
+    csum = (torch.cumsum(cnt, 0, dtype=torch.int32) if csum is None
+            else _i32(csum))
+    if on_cuda(a_rows, impl):
+        return expand_gather_cuda(a_rows, b_rows, start, csum, limit, cap,
+                                  new_sel)
+    return _ref.expand_gather_ref(a_rows, b_rows, start, cnt, limit, cap,
+                                  new_sel, csum=csum)
+
+
 def radix_probe(a_keys, keys_p, edges, *, bits: int, lmax: int,
                 impl: str = "auto"):
     """Probe of the radix hash join over the bucket spans of
@@ -175,7 +194,9 @@ def distinct_mask(rows, *, impl: str = "auto"):
 def cuda_kernels() -> dict:
     """name -> CudaKernel of every kernel of the package; each carries its
     ``launches`` count.  Each kernel belongs to a path: the first four to
-    the engine's main path (joins and the neighborhood check),
+    the engine's main path (joins and the neighborhood check;
+    expand_segments counts the launches of its expand_gather entry, the
+    expand of every join),
     bitmask_contains to the bloom prefilter (``EngineConfig.use_bloom``)
     and intersect_any to ``connectivity_mask_vectorized``."""
     from .bitmask_contains import KERNEL as BITMASK_KERNEL

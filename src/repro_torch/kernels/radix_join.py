@@ -18,12 +18,15 @@ sorted and the output keeps A's row order.
                     replaces ``repro.kernels.radix_join.window_probe_pallas``
                     with the radix_window before it.  Its plain version,
                     ``radix_probe_ref``, is radix_window + window_probe_ref
-  radix_scatter     gather of the matches into output slots ordered by A
+  radix_scatter     gather of the matches into output slots ordered by A,
+                    through the join expand of every strategy
+                    (``ops.expand_gather``)
 """
 from __future__ import annotations
 
 import torch
 
+from . import ops
 from ._build import INT, PTR, CudaKernel, check_cuda_int32, ptr
 from .fused_join import B_INVALID
 from .ref import window_probe_ref
@@ -119,20 +122,9 @@ def radix_scatter(a_rows, b_rows_p, lt, cnt, win_start, limit: int, *,
     """Assemble matches into `cap` output slots ordered by probe row.
 
     Each output slot t pulls its match by index arithmetic: probe row i
-    by searchsorted over the cumulative counts, match ordinal
-    k = t - base[i] (subtraction form), build row
-    win_start[i] + lt[i] + k.  Slots at or past min(limit, total) are
+    owns it by the cumulative counts, match ordinal k = t - base[i], build
+    row win_start[i] + lt[i] + k — the join expand ``ops.expand_gather``
+    with start = win_start + lt.  Slots at or past min(limit, total) are
     -1-filled."""
-    csum = torch.cumsum(cnt, 0, dtype=torch.int32)
-    base = csum - cnt                                # exclusive, by A row
-    t = torch.arange(cap, dtype=torch.int32, device=csum.device)
-    i = torch.clamp(torch.searchsorted(csum, t, right=True, out_int32=True),
-                    max=cnt.shape[0] - 1)
-    k = t - base[i]
-    invalid = ~(t < torch.clamp(csum[-1], max=limit))[:, None]
-    left = a_rows[i].masked_fill(invalid, -1)
-    if has_new:
-        bj = torch.clamp(win_start[i] + lt[i] + k, 0, b_rows_p.shape[0] - 1)
-        right = b_rows_p[bj][:, list(new_sel)].masked_fill(invalid, -1)
-        return torch.cat([left, right], dim=1)
-    return left
+    return ops.expand_gather(a_rows, b_rows_p, win_start + lt, cnt, limit,
+                             cap, new_sel if has_new else ())

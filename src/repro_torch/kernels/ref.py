@@ -143,6 +143,33 @@ def expand_segments_ref(csum: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.searchsorted(csum, t, right=True, out_int32=True)
 
 
+def expand_gather_ref(a_rows: torch.Tensor, b_rows: torch.Tensor,
+                      start: torch.Tensor, cnt: torch.Tensor, limit: int,
+                      cap: int, new_sel=(), csum: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """The join expand: [cap, ka + len(new_sel)] output rows.
+
+    Output slot t belongs to a-row i = expand_segments_ref(csum)[t] and
+    pairs it with b-row start[i] + (t - (csum[i] - cnt[i])), the b-row
+    keeping the columns new_sel; slots at or past min(csum[-1], limit) are
+    -1-filled.  csum = cumsum(cnt) unless given."""
+    a_cap = a_rows.shape[0]
+    if csum is None:
+        csum = torch.cumsum(cnt, 0, dtype=torch.int32)
+    t = torch.arange(cap, dtype=torch.int32, device=csum.device)
+    seg = torch.searchsorted(csum, t, right=True, out_int32=True)
+    invalid = ~((t < csum[-1]) & (t < limit))[:, None]
+    i = torch.clamp(seg, max=a_cap - 1)
+    base = csum[i] - cnt[i]
+    # offset as t - base (subtraction form), as the reference writes it
+    j = torch.clamp(start[i] + (t - base), 0, b_rows.shape[0] - 1)
+    left = a_rows[i].masked_fill(invalid, -1)
+    if new_sel:
+        right = b_rows[j][:, list(new_sel)].masked_fill(invalid, -1)
+        return torch.cat([left, right], dim=1)
+    return left
+
+
 def window_probe_ref(a_keys: torch.Tensor, win_keys: torch.Tensor):
     """(lt, cnt): per-row count of window keys below the probe key and of
     keys equal to it."""

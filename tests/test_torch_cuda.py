@@ -13,6 +13,7 @@ import repro_torch.core as T
 import repro_torch.data as TD
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import radix_join as krad
+from repro_torch.kernels.merge_probe import merge_probe_cuda
 
 A_INV = (1 << 31) - 1
 B_INV = (1 << 31) - 2
@@ -53,6 +54,135 @@ def test_expand_segments_kernel(dev, n, cap):
     csum = _on(dev, np.cumsum(rng.integers(0, 9, n)))
     assert torch.equal(ops.expand_segments(csum, cap),
                        ref.expand_segments_ref(csum, cap))
+
+
+# merged items a block of the merge-path kernels: merge_probe's tile is
+# 384, 640, 896 or 1408 by na + nb (below 2^18, 2^20, 2^21, or more),
+# expand_gather's 1408.  merge_probe runs its bisection kernel below 2^13
+# merged items; each case holds the engine's launch and both kernels of
+# merge_probe.cu, forced.
+
+
+def _probe_equal(a, b):
+    want = ref.merge_probe_sorted(a, b)
+    for method in ("engine", "path", "bisect"):
+        got = ops.merge_probe(a, b) if method == "engine" else \
+            merge_probe_cuda(a, b, method)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w), method
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("na,nb", [
+    (1, 1), (1, 384), (383, 1), (385, 383), (1023, 1025), (2047, 2049),
+    (4095, 4097), (3 * 1408, 5 * 1408 + 7),
+    (1 << 17, (1 << 17) - 1), (1 << 17, (1 << 17) + 1),   # tile 384 | 640
+    ((1 << 19) + 1, (1 << 19) - 2), (1 << 19, 1 << 19),   # 640 | 896
+    ((1 << 20) - 1, 1 << 20), (1 << 20, 1 << 20),         # 896 | 1408
+    (1, 1 << 20), (1 << 20, 3)])
+def test_merge_probe_kernel_tile_edges(dev, na, nb):
+    """The merge-path kernel at sizes around its tile, na << nb and
+    na >> nb, with short duplicate runs that tile edges cut."""
+    rng = np.random.default_rng(na * 7 + nb)
+    hi = max(8, (na + nb) // 3)
+    _probe_equal(_on(dev, np.sort(rng.integers(0, hi, na))),
+                 _on(dev, np.sort(rng.integers(0, hi, nb))))
+
+
+@pytest.mark.parametrize("side", ["a", "b", "both"])
+def test_merge_probe_kernel_long_equal_runs(dev, side):
+    """Runs of 10^5 equal keys on either side cross many tiles: cnt must
+    stay exact (the run end past a tile is galloped for, not scanned)."""
+    rng = np.random.default_rng(len(side))
+    run = 100_000
+    a = rng.integers(0, 5000, 30_000)
+    b = rng.integers(0, 5000, 30_000)
+    if side in ("a", "both"):
+        a = np.concatenate([a, np.full(run, 2500)])
+    if side in ("b", "both"):
+        b = np.concatenate([b, np.full(run, 2500)])
+    _probe_equal(_on(dev, np.sort(a)), _on(dev, np.sort(b)))
+    # one key on one side against a run on the other, at a tile's edge
+    _probe_equal(_on(dev, [2500]), _on(dev, np.full(run, 2500)))
+    _probe_equal(_on(dev, np.full(run, 7)), _on(dev, [3, 7, 7, 9]))
+
+
+def test_merge_probe_kernel_empty_and_sentinel_sides(dev):
+    rng = np.random.default_rng(3)
+    keys = _on(dev, np.sort(rng.integers(0, 100, 3000)))
+    empty = _on(dev, np.zeros(0))
+    _probe_equal(keys, empty)
+    _probe_equal(empty, keys)
+    a_inv = _on(dev, np.full(2000, A_INV))
+    b_inv = _on(dev, np.full(5000, B_INV))
+    _probe_equal(a_inv, b_inv)                     # all sentinels
+    _probe_equal(a_inv, keys)
+    _probe_equal(keys, b_inv)
+    start, cnt = ops.merge_probe(a_inv, b_inv)
+    assert bool((start == 5000).all()) and not bool(cnt.any())
+
+
+# (n, nb, ka, kb, new_sel, zero run, limit share, cap or None)
+EXPAND_GRID = [
+    (1, 1, 1, 1, (), None, None, None),
+    (300, 200, 2, 3, (2, 0), None, 0.4, None),
+    (50, 40, 1, 2, (1,), "all", None, None),
+    (6000, 300, 2, 2, (1, 0), (500, 4500), None, None),
+    (700, 90, 3, 1, (), (0, 600), 0.5, None),
+    (257, 129, 1, 4, (3, 1, 0, 2), None, None, None),
+    (999, 64, 5, 4, (2, 3, 1), None, 0.0, None),
+    (1 << 20, 1 << 20, 2, 3, (2, 0), None, None, 1 << 20),
+    (1 << 19, 5000, 3, 2, (1,), (1000, 400_000), 0.6, 1 << 20),
+    (3, 1 << 20, 1, 2, (1, 0), None, None, 1 << 20),  # a few long ranges
+]
+
+
+@pytest.mark.parametrize("case", range(len(EXPAND_GRID)))
+def test_expand_gather_kernel(dev, case):
+    """One launch of the merge-path expand == ref.expand_gather_ref, cap up
+    to 2^20, limits below the total, long runs of cnt = 0, no new
+    columns, permuted new columns and widths 1 to 8."""
+    n, nb, ka, kb, new_sel, zero_run, limit, cap = EXPAND_GRID[case]
+    rng = np.random.default_rng(case)
+    a_rows = _on(dev, rng.integers(0, 1 << 30, (n, ka)))
+    b_rows = _on(dev, rng.integers(0, 1 << 30, (nb, kb)))
+    cnt = (rng.integers(1, nb // 3, n) if nb > 1000 * n
+           else rng.integers(0, 3, n))
+    if zero_run == "all":
+        cnt[:] = 0
+    elif zero_run is not None:
+        cnt[zero_run[0]: zero_run[1]] = 0
+    cnt = np.minimum(cnt, nb)
+    start = (rng.random(n) * (nb - cnt + 1)).astype(np.int64)
+    total = int(cnt.sum())
+    lim = (1 << 31) - 1 if limit is None else int(total * limit)
+    if cap is None:
+        cap = max(64, 1 << max(min(total, lim) - 1, 0).bit_length())
+    start, cnt = _on(dev, start), _on(dev, cnt)
+    counter = ops.cuda_kernels()["expand_segments"]
+    before = counter.launches
+    got = ops.expand_gather(a_rows, b_rows, start, cnt, lim, cap, new_sel)
+    assert counter.launches == before + 1
+    want = ref.expand_gather_ref(a_rows, b_rows, start, cnt, lim, cap,
+                                 new_sel)
+    assert got.shape == want.shape == (cap, ka + len(new_sel))
+    assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+def test_expand_gather_kernel_reads_total_on_the_card(dev):
+    """A given csum is the running count: slots past its last entry (the
+    total) or past the limit are -1, as in the plain version."""
+    a_rows = _on(dev, np.arange(8)[:, None])
+    b_rows = _on(dev, np.arange(100, 120)[:, None])
+    cnt = _on(dev, [0, 3, 0, 0, 2, 5, 0, 1])
+    start = _on(dev, [0, 2, 0, 0, 9, 11, 0, 19])
+    for lim in (0, 4, 11, 100):
+        got = ops.expand_gather(a_rows, b_rows, start, cnt, lim, 16, (0,))
+        want = ref.expand_gather_ref(a_rows, b_rows, start, cnt, lim, 16,
+                                     (0,))
+        assert torch.equal(got, want)
+        assert int((got[:, 0] >= 0).sum()) == min(11, lim)
 
 
 def _span_probe_equal(a, keys_p, edges, bits, lmax):

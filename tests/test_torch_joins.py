@@ -106,6 +106,64 @@ def test_sorted_run_reuse_chain_matches():
         assert ttel.sorts_avoided > 0
 
 
+# ------------------------------ join expand ---------------------------- #
+# (n, nb, ka, new_sel, zero run, limit share): the staged expand's grid —
+# a limit below the total, a total of 0, thousands of cnt = 0 rows, no new
+# columns, new_sel permuted, widths 1 to 8
+MERGE_EXPAND_GRID = [
+    (1, 1, 1, (), None, None),
+    (400, 300, 2, (2, 0), None, 0.3),
+    (64, 10, 3, (1,), "all", None),
+    (5000, 200, 1, (0, 1), (100, 4900), None),
+    (900, 50, 4, (), (0, 800), 0.7),
+    (300, 300, 2, (3, 1, 0, 2), None, None),
+    (77, 1000, 5, (2, 0, 1), (5, 50), 1.0),
+]
+
+
+@pytest.mark.parametrize("case", range(len(MERGE_EXPAND_GRID)))
+def test_expand_gather_matches_merge_expand(case):
+    """The staged join's expand, now ops.expand_gather, == the reference's
+    matching._merge_expand on the same inputs."""
+    n, nb, ka, new_sel, zero_run, limit = MERGE_EXPAND_GRID[case]
+    rng = np.random.default_rng(case)
+    a_rows = rng.integers(0, 999, (n, ka)).astype(np.int32)
+    b_rows = rng.integers(0, 999, (nb, 4)).astype(np.int32)
+    cnt = np.minimum(rng.integers(0, 5, n), nb).astype(np.int32)
+    if zero_run == "all":
+        cnt[:] = 0
+    elif zero_run is not None:
+        cnt[zero_run[0]: zero_run[1]] = 0
+    start = (rng.random(n) * (nb - cnt + 1)).astype(np.int32)
+    total = int(cnt.sum())
+    lim = total if limit is None else int(total * limit)
+    cap = tm._pow2(lim)
+    want = jm._merge_expand(jnp.asarray(a_rows), jnp.asarray(b_rows),
+                            jnp.asarray(start), jnp.asarray(cnt), lim, cap,
+                            new_sel, bool(new_sel))
+    got = tm.kops.expand_gather(torch.as_tensor(a_rows),
+                                torch.as_tensor(b_rows),
+                                torch.as_tensor(start), torch.as_tensor(cnt),
+                                lim, cap, new_sel)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("impl,fuse", [("sorted", True), ("sorted", False),
+                                       ("radix", True)])
+@pytest.mark.parametrize("limit", [None, 5, 300])
+def test_selective_join_expand_row_for_row(impl, fuse, limit):
+    """Joins whose probe side is mostly rows without a match (long runs of
+    cnt = 0 before the expand), with and without a row limit, through each
+    join path's expand."""
+    rng = np.random.default_rng(41)
+    a = rng.integers(0, 5000, (3000, 2))
+    a[::50, 0] = rng.integers(0, 20, 60)            # 60 rows that match
+    ja, ta = mk((0, 1), a)
+    jb, tb = mk((0, 2), rng.integers(0, 20, (200, 2)))
+    both("join_tables", ja, jb, ta, tb, impl=impl, fuse=fuse,
+         row_limit=limit)
+
+
 # ------------------------- overflow and resume ------------------------- #
 @pytest.mark.parametrize("impl,fuse,resume_cls", [
     ("sorted", True, "_ProbeResume"), ("sorted", False, "_ProbeResume"),

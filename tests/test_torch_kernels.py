@@ -245,6 +245,98 @@ def test_expand_segments_matches_pallas(n, cap):
     _eq(tops.expand_segments(_t(csum), cap), want)
 
 
+# ----------------------------- join expand ----------------------------- #
+# (n, nb, ka, kb, new_sel, zero run, limit) — widths ka + len(new_sel) of
+# 1 to 8; limit None is no limit, a float a share of the match total
+EXPAND_GRID = [
+    (1, 1, 1, 1, (), None, None),
+    (300, 200, 2, 3, (2, 0), None, 0.4),          # limit below the total
+    (50, 40, 1, 2, (1,), "all", None),            # a total of 0
+    (6000, 300, 2, 2, (1, 0), (500, 4500), None),  # thousands of cnt = 0
+    (700, 90, 3, 1, (), (0, 600), 0.5),           # no new columns
+    (257, 129, 1, 4, (3, 1, 0, 2), None, None),   # new_sel permuted
+    (129, 500, 4, 5, (4, 2, 0, 3), (10, 100), 1.0),
+    (999, 64, 5, 4, (2, 3, 1), None, 0.0),        # width 8, limit 0
+]
+
+
+def _expand_case(seed, n, nb, ka, kb, zero_run, limit):
+    """Sorted-side rows, per-row match ranges inside b and the limit."""
+    rng = np.random.default_rng(seed)
+    a_rows = rng.integers(0, 1000, (n, ka)).astype(np.int32)
+    b_rows = rng.integers(0, 1000, (nb, kb)).astype(np.int32)
+    cnt = rng.integers(0, 4, n).astype(np.int32)
+    if zero_run == "all":
+        cnt[:] = 0
+    elif zero_run is not None:
+        cnt[zero_run[0]: zero_run[1]] = 0
+    cnt = np.minimum(cnt, nb)
+    start = (rng.random(n) * (nb - cnt + 1)).astype(np.int32)
+    total = int(cnt.sum())
+    lim = (1 << 31) - 1 if limit is None else int(total * limit)
+    cap = max(64, 1 << max(min(total, lim) - 1, 0).bit_length())
+    return a_rows, b_rows, start, cnt, lim, cap
+
+
+@pytest.mark.parametrize("case", range(len(EXPAND_GRID)))
+def test_expand_gather_matches_fused_expand_with_pallas_segments(case):
+    """ops.expand_gather on the CPU == the reference's fused _expand, whose
+    slot map runs expand_segments_pallas in interpret mode."""
+    n, nb, ka, kb, new_sel, zero_run, limit = EXPAND_GRID[case]
+    a_rows, b_rows, start, cnt, lim, cap = _expand_case(
+        case, n, nb, ka, kb, zero_run, limit)
+    want, total = jfused._expand(
+        jnp.asarray(a_rows), jnp.asarray(b_rows), jnp.asarray(start),
+        jnp.asarray(cnt), lim, cap, new_sel, bool(new_sel), "interpret")
+    got = tops.expand_gather(_t(a_rows), _t(b_rows), _t(start), _t(cnt), lim,
+                             cap, new_sel)
+    assert got.dtype == torch.int32
+    assert got.shape == (cap, ka + len(new_sel))
+    _eq(got, want)
+    rows, t_total = tfused._expand(_t(a_rows), _t(b_rows), _t(start),
+                                   _t(cnt), lim, cap, new_sel, bool(new_sel))
+    _eq(rows, want)
+    assert int(t_total) == int(total) == int(cnt.sum())
+
+
+@pytest.mark.parametrize("case", range(len(EXPAND_GRID)))
+def test_expand_gather_matches_radix_scatter(case):
+    """radix_scatter's expand (start = win_start + lt) through
+    ops.expand_gather == the reference's radix_scatter."""
+    n, nb, ka, kb, new_sel, zero_run, limit = EXPAND_GRID[case]
+    a_rows, b_rows, start, cnt, lim, cap = _expand_case(
+        case, n, nb, ka, kb, zero_run, limit)
+    rng = np.random.default_rng(case + 100)
+    lt = (rng.random(n) * (start + 1)).astype(np.int32)
+    win_start = start - lt
+    want = jrad.radix_scatter(
+        jnp.asarray(a_rows), jnp.asarray(b_rows), jnp.asarray(lt),
+        jnp.asarray(cnt), jnp.asarray(win_start), lim, cap=cap,
+        new_sel=new_sel, has_new=bool(new_sel))
+    _eq(trad.radix_scatter(_t(a_rows), _t(b_rows), _t(lt), _t(cnt),
+                           _t(win_start), lim, cap=cap, new_sel=new_sel,
+                           has_new=bool(new_sel)), want)
+    _eq(tops.expand_gather(_t(a_rows), _t(b_rows), _t(start), _t(cnt), lim,
+                           cap, new_sel), want)
+
+
+def test_expand_gather_dispatch():
+    """impl='cuda' on a CPU tensor raises; on the CPU no kernel launches;
+    a given csum is used as the running counts."""
+    a_rows, b_rows, start, cnt, lim, cap = _expand_case(
+        7, 40, 30, 2, 2, None, None)
+    with pytest.raises(RuntimeError):
+        tops.expand_gather(_t(a_rows), _t(b_rows), _t(start), _t(cnt), lim,
+                           cap, (1,), impl="cuda")
+    before = tops.cuda_kernels()["expand_segments"].launches
+    plain = tops.expand_gather(_t(a_rows), _t(b_rows), _t(start), _t(cnt),
+                               lim, cap, (1,))
+    given = tops.expand_gather(_t(a_rows), _t(b_rows), _t(start), _t(cnt),
+                               lim, cap, (1,), csum=_t(np.cumsum(cnt)))
+    assert tops.cuda_kernels()["expand_segments"].launches == before
+    _eq(given, plain)
+
+
 # ----------------------------- window probe ---------------------------- #
 @pytest.mark.parametrize("n,lmax", [(40, 16), (1, 8), (33, 32), (300, 64),
                                     (17, 3)])
