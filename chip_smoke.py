@@ -26,7 +26,11 @@ exits non-zero without its final line:
             the slot-map path (expand_segments + the PyTorch gather) and the
             library composition (torch.searchsorted + the gather);
             merge_probe and expand_gather are also timed with L2 flushed
-            between calls (ms_l2_flushed)
+            between calls (ms_l2_flushed).  intersect_any has a row for
+            each entry: the padded rows of reach_sets, and
+            intersect_any_ragged on the ragged rows of the conn path's
+            gather at P = 1,024 and at P = 65,536, the second also timed
+            with L2 flushed
   main      12 RDF-h queries (the last 4 with a connection edge) through
             Dataset.engine("rdf_h") -> Engine.execute on the card, cold
             then warm; each of the four kernels of this path must have
@@ -49,8 +53,12 @@ exits non-zero without its final line:
   conn      8,192 endpoint pairs of the main phase's connection edges
             (half from their result rows, half random) through
             connectivity_mask_vectorized on the card, directed and
-            bidirectional: intersect_any must have launched, and the masks
-            must equal the host's per-pair connectivity_mask
+            bidirectional: intersect_any's ragged entry must have launched
+            exactly once per chunk of 1,024 pairs (the padded entry never),
+            and the masks must equal the host's per-pair
+            connectivity_mask; prints the seconds split into the host's
+            reach gathering, the upload, the kernel with its copy back and
+            the _exact_reach fallbacks, and the pairs the fallback decided
   parity    lubm_like and dblp_like at scale 0.3: the card's result sets
             equal the CPU engine's, exactly, for rdf_h and for the bloom
             configuration
@@ -238,7 +246,7 @@ def bound(nbytes: float, nops: float):
 def reset_launches() -> None:
     from repro_torch.kernels import ops
     for k in ops.cuda_kernels().values():
-        k.launches = 0
+        k.reset()
 
 
 def launch_counts() -> dict:
@@ -614,8 +622,10 @@ def kernel_phase(ds, rng) -> list:
     # A pair's test ends at the first b entry found in its a-row: the
     # bound counts the b-row up to there
     p = 1024
-    fa, _ = reach_sets(ds.ni, rng.integers(0, ds.graph.num_nodes, p), 2, +1)
-    bb, _ = reach_sets(ds.ni, rng.integers(0, ds.graph.num_nodes, p), 2, -1)
+    a_nodes = rng.integers(0, ds.graph.num_nodes, p)
+    b_nodes = rng.integers(0, ds.graph.num_nodes, p)
+    fa, _ = reach_sets(ds.ni, a_nodes, 2, +1)
+    bb, _ = reach_sets(ds.ni, b_nodes, 2, -1)
     fa, bb = np.ascontiguousarray(fa), np.ascontiguousarray(bb)
     ra = torch.as_tensor(fa, device=dev)
     rb = torch.as_tensor(bb, device=dev)
@@ -630,6 +640,18 @@ def kernel_phase(ds, rng) -> list:
                int(((fa >= 0).sum(1) * b_read).sum()),
                (ops.intersect_any(ra, rb),),
                (ref.intersect_any_sorted(ra, rb),))
+    del ra, rb
+
+    # intersect_any_ragged: the same nodes' rows from the ragged gather of
+    # connectivity_mask_vectorized (valid ids only, overflowed rows empty),
+    # then 65,536 random pairs, their rows gathered 1,024 pairs at a time
+    ragged = {"intersect_any_ragged": ragged_rows(ds.ni, a_nodes, b_nodes)}
+    big = 1 << 16
+    ragged["intersect_any_ragged_65536"] = ragged_rows(
+        ds.ni, rng.integers(0, ds.graph.num_nodes, big),
+        rng.integers(0, ds.graph.num_nodes, big))
+    for name, host in ragged.items():
+        record_ragged(out, name, host, dev)
     emit({"phase": "kernels", "cap": entry.cap,
           "shapes": {"merge_probe": [n, n], "expand_segments": [n, cap],
                      "expand_gather": out[2]["shape"],
@@ -638,16 +660,93 @@ def kernel_phase(ds, rng) -> list:
                      "interval_count": [c, entry.cap, j],
                      "interval_count_node_check": [nn_cand, 4, j],
                      "bitmask_contains": [n_sig, w],
-                     "intersect_any": [p, wa, wb]},
+                     "intersect_any": [p, wa, wb],
+                     **{r["name"]: r["shape"] for r in out
+                        if r["name"] in ragged}},
           "bitmask_contains_pass": sig_pass,
           "bitmask_contains_words_read": words,
           "intersect_any_hits": int(found.any(1).sum()),
           "intersect_any_b_read": int(b_read.sum()),
           "intersect_any_valid_per_row": [float((fa >= 0).sum(1).mean()),
                                           float((bb >= 0).sum(1).mean())]})
-    del sigs, ra, rb
+    del sigs
     torch.cuda.empty_cache()
     return out
+
+
+def ragged_rows(ni, a_nodes, b_nodes, chunk: int = 1024):
+    """The ragged rows (a_ids, a_off, b_ids, b_off) of these pairs,
+    forward 2 hops against backward 2 hops, as
+    connectivity_mask_vectorized gathers them, chunk pairs at a time and
+    concatenated (a dense gather of 65,536 backward rows would take 2 GB
+    of host memory)."""
+    import numpy as np
+    from repro_torch.core.connectivity import ragged_reach
+    sides = []
+    for nodes, sign in ((a_nodes, +1), (b_nodes, -1)):
+        ids, lens = [], []
+        for s in range(0, len(nodes), chunk):
+            x, off, _ = ragged_reach(ni, nodes[s:s + chunk], 2, sign)
+            ids.append(x)
+            lens.append(np.diff(off))
+        lens = np.concatenate(lens)
+        off = np.concatenate([[0], np.cumsum(lens)])
+        if off[-1] >= 1 << 31:
+            fail("ragged rows: more than 2^31 - 1 ids a side")
+        sides += [np.concatenate(ids), off.astype(np.int32)]
+    return sides
+
+
+def record_ragged(out, name, host, dev):
+    """An intersect_any_ragged row at these ragged rows (host arrays).
+    The bound counts both sides' offsets, each pair's shorter row whole
+    and its longer up to the first id found in the shorter (nothing of a
+    pair with an empty row), and one int out a pair; the operations are
+    the compares of those reads.  Beside it, the kernel's tier of each
+    pair (csrc/intersect_any.cu: group, warp or block)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    fa, fa_off, bb, bb_off = host
+    p = len(fa_off) - 1
+    la, lb = np.diff(fa_off), np.diff(bb_off)
+    short, long_ = np.minimum(la, lb), np.maximum(la, lb)
+    read = nops = hits = 0
+    for i in np.flatnonzero(short > 0):
+        x = fa[fa_off[i]:fa_off[i + 1]]
+        y = bb[bb_off[i]:bb_off[i + 1]]
+        s, l = (x, y) if len(x) <= len(y) else (y, x)
+        f = np.isin(l, s)
+        upto = int(f.argmax()) + 1 if f.any() else len(l)
+        read += len(s) + upto
+        nops += len(s) * upto
+        hits += bool(f.any())
+    rows = [torch.as_tensor(x, device=dev) for x in host]
+    big = p > 1024
+    record_row(out, name, "intersect_any.cu",
+               "src/repro/kernels/sorted_intersect.py:47",
+               lambda: ops.intersect_any_ragged(*rows),
+               lambda: ref.intersect_any_ragged_ref(*rows),
+               None, 4 * read + 8 * (p + 1) + 4 * p, nops,
+               (ops.intersect_any_ragged(*rows),),
+               (ref.intersect_any_ragged_ref(*rows),),
+               counter="intersect_any",
+               cold_kernel="intersect_any_ragged" if big else None)
+    # csrc/intersect_any.cu: staged <= 32 and streamed <= 64 (group) or
+    # <= 1,024 (warp)
+    group = (short > 0) & (short <= 32) & (long_ <= 64)
+    warp = (short > 0) & (short <= 32) & (long_ > 64) & (long_ <= 1024)
+    out[-1]["shape"] = {
+        "p": p, "a_ids": len(fa), "b_ids": len(bb),
+        "mean_len": [float(la.mean()), float(lb.mean())],
+        "max_len": [int(la.max()), int(lb.max())],
+        "empty_rows": [int((la == 0).sum()), int((lb == 0).sum())],
+        "ids_read": read, "hits": hits,
+        "tiers": {"empty": int((short == 0).sum()), "group": int(group.sum()),
+                  "warp": int(warp.sum()),
+                  "block": int(p - (short == 0).sum() - group.sum()
+                               - warp.sum())}}
+    return out[-1]
 
 
 def node_check_segments(ds, rng, j: int, dev):
@@ -1083,23 +1182,28 @@ def bloom_phase(ds) -> tuple:
 
 
 N_PAIRS = 8192
+CONN_CHUNK = 1024
 
 
 def conn_phase(ds, conn) -> dict:
     """connectivity_mask_vectorized on the card over pairs of the main
     phase's connection edges: half from their result rows (connected),
     half random from their endpoint intervals; held against the host's
-    per-pair connectivity_mask."""
+    per-pair connectivity_mask.  The intersect_any_ragged entry must
+    launch exactly once per chunk of pairs and the padded entry never;
+    the seconds are split by step (the function's `timings`)."""
     import numpy as np
     import torch
     from repro_torch.core import connectivity_mask, \
         connectivity_mask_vectorized
+    from repro_torch.kernels import ops
 
     g, rng = ds.graph, np.random.default_rng(1)
     per = N_PAIRS // 2 // len(conn)
     reset_launches()
     t_dev = t_host = 0.0
-    n_pairs, hits = 0, {False: 0, True: 0}
+    n_pairs, chunks, hits = 0, 0, {False: 0, True: 0}
+    split = {}
     for q, r in conn:
         c = q.connections[0]
         iv = q.intervals(ds.idmap)
@@ -1112,9 +1216,11 @@ def conn_phase(ds, conn) -> dict:
         for bi in (False, True):
             t0 = time.perf_counter()
             got = connectivity_mask_vectorized(g, ds.ni, a, b, c.max_dist,
-                                               bi, device=DEVICE)
+                                               bi, chunk=CONN_CHUNK,
+                                               device=DEVICE, timings=split)
             torch.cuda.synchronize()
             t_dev += time.perf_counter() - t0
+            chunks += -(-len(a) // CONN_CHUNK) * (2 if bi else 1)
             t0 = time.perf_counter()
             want = connectivity_mask(g, ds.ni, a, b, c.max_dist, bi)
             t_host += time.perf_counter() - t0
@@ -1126,11 +1232,21 @@ def conn_phase(ds, conn) -> dict:
             hits[bi] += int(got.sum())
         n_pairs += len(a)
     launches = read_launches("conn", CONN_KERNELS)
+    by_entry = dict(ops.cuda_kernels()["intersect_any"].entry_launches)
+    if by_entry != {"intersect_any": 0, "intersect_any_ragged": chunks}:
+        fail(f"conn: expected {chunks} intersect_any_ragged launches, one "
+             f"a chunk, and no padded one; got {by_entry}")
+    steps = ("gather", "upload", "kernel", "fallback")
     emit({"phase": "conn", "pairs": n_pairs, "queries": len(conn),
           "launches": {k: launches[k] for k in CONN_KERNELS},
+          "launches_by_entry": by_entry, "chunks": chunks,
           "hit_share": hits[False] / n_pairs,
           "hit_share_bidirectional": hits[True] / n_pairs,
-          "seconds": t_dev, "host_mask_seconds": t_host})
+          "seconds": t_dev, "host_mask_seconds": t_host,
+          "seconds_split": {**{k: split.get(k, 0.0) for k in steps},
+                            "rest": t_dev - sum(split.get(k, 0.0)
+                                                for k in steps)},
+          "fallback_pairs": split.get("fallback_pairs", 0)})
     return launches
 
 

@@ -15,7 +15,7 @@ from .matching import Table, CandidateTable, SortedRun, JoinTelemetry, \
     dtree_candidates, CapacityOverflow, resolve_join_impl, filter_rows, \
     injective_filter, dedup_project, empty_table
 from .connectivity import (connectivity_mask, connectivity_mask_vectorized,
-    reach_sets,
+    ragged_reach, reach_sets,
     enumerate_shortest_paths,
     instantiate_connections, ReachCache, ReachJoinInfo, reach_pairs,
     connected_pair_table, reach_join, reach_filter,

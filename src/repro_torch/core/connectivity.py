@@ -33,6 +33,7 @@ per query) memoizes reach sets across connection edges sharing endpoints.
 """
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
@@ -343,48 +344,123 @@ def connectivity_mask(graph: RDFGraph, ni: NIIndex,
     return out
 
 
+def _offsets(lens: np.ndarray) -> np.ndarray:
+    """Row offsets [P + 1] int64 of ragged rows of these lengths."""
+    off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    return off
+
+
+def _stored_ids(entry, nodes: np.ndarray, keep: np.ndarray):
+    """The stored ids of entry's rows `nodes` (the first min(count, cap)
+    of each; none where keep is False), concatenated: (ids [M], lens
+    [P]).  Reads only those ids, never the padding."""
+    lens = np.where(keep, np.minimum(entry.count[nodes], entry.cap), 0)
+    lens = lens.astype(np.int64)
+    start = nodes.astype(np.int64) * entry.cap - _offsets(lens)[:-1]
+    flat = np.repeat(start, lens) + np.arange(int(lens.sum()))
+    return entry.ids.reshape(-1)[flat], lens
+
+
+def ragged_reach(ni: NIIndex, nodes: np.ndarray, hops: int, sign: int):
+    """All node ids within <= hops of each node (sign=+1 forward, -1
+    backward) as ragged rows: (ids [M] int32, off [P + 1] int64,
+    overflow [P] bool), row i = ids[off[i]:off[i+1]].
+
+    Where the NI index covers hops, row i is the node followed by the
+    stored ids of entries sign*1 .. sign*hops: those are disjoint from
+    each other (the node itself recurs only at distance 1, through a
+    self-loop, and a repeat changes no intersection test), so there is no
+    dedup and no cap, and overflow is the OR of the entries' bits.
+    Beyond d_max the row holds the valid ids of `reach_sets`' row.  A row
+    that overflowed is empty: it cannot decide a pair, and `_exact_reach`
+    does."""
+    nodes = np.asarray(nodes, np.int64)
+    if hops > ni.d_max:
+        rows, overflow = reach_sets(ni, nodes, hops, sign)
+        valid = (rows >= 0) & ~overflow[:, None]
+        return rows[valid], _offsets(valid.sum(axis=1)), overflow
+    overflow = np.zeros(len(nodes), dtype=bool)
+    for d in range(1, hops + 1):
+        overflow |= ni.entries[sign * d].overflow[nodes]
+    keep = ~overflow
+    parts = [(nodes[keep].astype(np.int32), keep.astype(np.int64))]
+    parts += [_stored_ids(ni.entries[sign * d], nodes, keep)
+              for d in range(1, hops + 1)]
+    lens = np.stack([n for _, n in parts], axis=1)          # [P, parts]
+    off = _offsets(lens.sum(axis=1))
+    ids = np.empty(int(off[-1]), np.int32)
+    # where each part begins in its row
+    begin = off[:-1, None] + np.cumsum(lens, axis=1) - lens
+    for k, (vals, n) in enumerate(parts):
+        at = np.repeat(begin[:, k] - _offsets(n)[:-1], n)
+        ids[at + np.arange(vals.shape[0])] = vals
+    return ids, off, overflow
+
+
 def connectivity_mask_vectorized(graph: RDFGraph, ni: NIIndex,
                                  a_nodes: np.ndarray, b_nodes: np.ndarray,
                                  d_c: int, bidirectional: bool = False,
                                  *, impl: str = "auto", chunk: int = 1024,
                                  device,
-                                 cache: ReachCache | None = None
+                                 cache: ReachCache | None = None,
+                                 timings: dict | None = None
                                  ) -> np.ndarray:
     """Batched form of `connectivity_mask`: per chunk of pairs, reach sets
-    gathered on the host (`reach_sets`), one intersect_any launch on
-    `device`, and the hits copied back.  Exact: rows whose reach set
-    overflowed are decided on exact reach sets (`_exact_reach`: host BFS
-    where the NI index overflowed), memoized per call, so a hub that
-    overflows in many pairs is searched once.  device is required, so a
-    caller never lands on the CPU by leaving it out."""
+    gathered on the host as ragged rows of valid ids (`ragged_reach`),
+    uploaded without padding, one intersect_any_ragged launch on `device`,
+    and the hits copied back.  Exact: rows whose reach set overflowed are
+    decided on exact reach sets (`_exact_reach`: host BFS where the NI
+    index overflowed), memoized per call, so a hub that overflows in many
+    pairs is searched once.  device is required, so a caller never lands
+    on the CPU by leaving it out.  `timings`, when given, accumulates
+    seconds by step ("gather", "upload", "kernel": the launch and the copy
+    back, "fallback") and "fallback_pairs", the pairs `_exact_reach`
+    decided."""
     dev = ops.resolve_device(device)
     if cache is None:
         cache = ReachCache()
     if bidirectional:
         fwd = connectivity_mask_vectorized(graph, ni, a_nodes, b_nodes,
                                            d_c, impl=impl, chunk=chunk,
-                                           device=dev, cache=cache)
+                                           device=dev, cache=cache,
+                                           timings=timings)
         rev = connectivity_mask_vectorized(graph, ni, b_nodes, a_nodes,
                                            d_c, impl=impl, chunk=chunk,
-                                           device=dev, cache=cache)
+                                           device=dev, cache=cache,
+                                           timings=timings)
         return fwd | rev
+    clock = {} if timings is None else timings
+
+    def lap(step: str, since: float) -> float:
+        now = time.perf_counter()
+        clock[step] = clock.get(step, 0.0) + now - since
+        return now
+
     p = len(a_nodes)
     out = np.zeros(p, dtype=bool)
     h_fwd, h_bwd = hop_split(d_c)
     for s in range(0, p, chunk):
         e = min(s + chunk, p)
         a, b = a_nodes[s:e], b_nodes[s:e]
-        fa, ofa = reach_sets(ni, a, h_fwd, +1)
-        bb, ofb = reach_sets(ni, b, h_bwd, -1)
-        hit = ops.intersect_any(
-            torch.as_tensor(np.ascontiguousarray(fa), device=dev),
-            torch.as_tensor(np.ascontiguousarray(bb), device=dev),
-            impl=impl).cpu().numpy().astype(bool)
+        t = time.perf_counter()
+        fa, fa_off, ofa = ragged_reach(ni, a, h_fwd, +1)
+        bb, bb_off, ofb = ragged_reach(ni, b, h_bwd, -1)
+        t = lap("gather", t)
+        rows = [torch.from_numpy(x).to(dev) for x in
+                (fa, fa_off.astype(np.int32), bb, bb_off.astype(np.int32))]
+        t = lap("upload", t)
+        hit = ops.intersect_any_ragged(*rows, impl=impl).cpu().numpy()
+        hit = hit.astype(bool)
+        t = lap("kernel", t)
         of = ofa | ofb
         for i in np.nonzero(of)[0]:
             fs = _exact_reach(graph, ni, int(a[i]), h_fwd, +1, cache)
             bs = _exact_reach(graph, ni, int(b[i]), h_bwd, -1, cache)
             hit[i] = not fs.isdisjoint(bs)
+        lap("fallback", t)
+        clock["fallback_pairs"] = clock.get("fallback_pairs", 0) + \
+            int(of.sum())
         out[s:e] = hit
     return out
 

@@ -7,4 +7,5 @@ CUDA kernel for CUDA tensors, the plain version for CPU tensors).
 from . import ops, ref
 from .ops import (bitmask_contains, distinct_mask, expand_gather,
                   expand_segments, interval_check, interval_count,
-                  intersect_any, merge_probe, radix_probe)
+                  intersect_any, intersect_any_ragged, merge_probe,
+                  radix_probe)

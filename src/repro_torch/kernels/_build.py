@@ -90,15 +90,20 @@ class CudaKernel:
     one place a kernel of this package is launched, so a run can show
     which kernels its path went through.  A source may export further
     entry points (``entries``: symbol -> argtypes); they count as launches
-    of the same kernel."""
+    of the same kernel, and ``entry_launches`` counts each entry apart."""
 
     def __init__(self, source: str, symbol: str, argtypes: list,
                  entries: dict | None = None):
         self.source = source
         self.symbol = symbol
         self.entries = {symbol: argtypes, **(entries or {})}
-        self.launches = 0
         self._fns = {}
+        self.reset()
+
+    def reset(self) -> None:
+        """Set the launch counts to 0."""
+        self.launches = 0
+        self.entry_launches = dict.fromkeys(self.entries, 0)
 
     def _bind(self, symbol: str):
         if symbol not in self._fns:
@@ -122,6 +127,7 @@ class CudaKernel:
             raise RuntimeError(f"CUDA kernel {symbol} failed to launch "
                                f"(cudaError {rc})")
         self.launches += 1
+        self.entry_launches[symbol] += 1
 
 
 PTR = ctypes.c_void_p

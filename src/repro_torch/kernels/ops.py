@@ -24,7 +24,7 @@ from .ref import CheckSegment
 from .bitmask_contains import bitmask_contains_cuda
 from .interval_count import interval_check_cuda, interval_count_cuda
 from .merge_probe import merge_probe_cuda
-from .sorted_intersect import intersect_any_cuda
+from .sorted_intersect import intersect_any_cuda, intersect_any_ragged_cuda
 
 IMPLS = ("auto", "cuda", "sorted", "ref")
 
@@ -181,6 +181,17 @@ def intersect_any(a, b, *, impl: str = "auto"):
     return _ref.intersect_any_sorted(a, b)
 
 
+def intersect_any_ragged(a_ids, a_off, b_ids, b_off, *, impl: str = "auto"):
+    """hit[p] = 1 iff a_ids[a_off[p]:a_off[p+1]] and
+    b_ids[b_off[p]:b_off[p+1]] share an id: ragged rows of valid ids
+    (any order, duplicates allowed), offsets [P + 1].  On CUDA one launch
+    reads only the ids, each pair's longer row up to its first hit."""
+    a_ids, a_off, b_ids, b_off = map(_i32, (a_ids, a_off, b_ids, b_off))
+    if on_cuda(a_ids, impl):
+        return intersect_any_ragged_cuda(a_ids, a_off, b_ids, b_off)
+    return _ref.intersect_any_ragged_ref(a_ids, a_off, b_ids, b_off)
+
+
 def distinct_mask(rows, *, impl: str = "auto"):
     """First-of-group mask over lexicographically sorted rows [N, K].
 
@@ -198,7 +209,8 @@ def cuda_kernels() -> dict:
     expand_segments counts the launches of its expand_gather entry, the
     expand of every join),
     bitmask_contains to the bloom prefilter (``EngineConfig.use_bloom``)
-    and intersect_any to ``connectivity_mask_vectorized``."""
+    and intersect_any to ``connectivity_mask_vectorized`` (which launches
+    its intersect_any_ragged entry)."""
     from .bitmask_contains import KERNEL as BITMASK_KERNEL
     from .fused_join import EXPAND_KERNEL
     from .interval_count import KERNEL as INTERVAL_KERNEL

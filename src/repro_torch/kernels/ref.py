@@ -211,6 +211,35 @@ def intersect_any_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return hit.any(dim=1).to(torch.int32)
 
 
+def intersect_any_ragged_ref(a_ids: torch.Tensor, a_off: torch.Tensor,
+                             b_ids: torch.Tensor,
+                             b_off: torch.Tensor) -> torch.Tensor:
+    """hit[p] = 1 iff a_ids[a_off[p]:a_off[p+1]] and
+    b_ids[b_off[p]:b_off[p+1]] share an id.
+
+    Ragged rows: ids [N] int32 (no padding, any order, duplicates
+    allowed), offsets [P + 1], ascending from 0 to N.  Returns [P] int32.
+    Exact, with no [P, A, B] compare cube: each id becomes the int64 key
+    pair << 32 | id on its side, the b-keys found among the a-keys
+    (``torch.isin``) mark their pairs."""
+    p = a_off.shape[0] - 1
+    keys = []
+    for ids, off in ((a_ids, a_off), (b_ids, b_off)):
+        off = off.long()
+        lens = off[1:] - off[:-1]
+        if p < 0 or off.shape != (p + 1,) or int(off[0]) != 0 \
+                or int(off[-1]) != ids.shape[0] or bool((lens < 0).any()):
+            raise ValueError("expected offsets [P + 1] ascending from 0 to "
+                             "the number of ids")
+        pair = torch.repeat_interleave(
+            torch.arange(p, device=ids.device), lens)
+        keys.append((pair << 32) | (ids.long() & 0xFFFFFFFF))
+    found = torch.isin(keys[1], keys[0])
+    hit = torch.zeros(p, dtype=torch.int32, device=a_ids.device)
+    hit[keys[1][found] >> 32] = 1
+    return hit
+
+
 def distinct_mask_sorted(rows: torch.Tensor) -> torch.Tensor:
     """mask[i] = True iff rows[i] differs from rows[i-1] (row 0 always).
 

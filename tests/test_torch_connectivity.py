@@ -75,3 +75,34 @@ def test_vectorized_needs_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         T.connectivity_mask_vectorized(g, ni, a, a, 2, device="cuda")
+
+
+@pytest.mark.parametrize("seed,d_max,cap_quantile", [
+    (0, 1, 1.0), (1, 2, 1.0), (3, 3, 1.0), (21, 2, 0.5)])
+def test_ragged_reach_rows_equal_reach_sets(seed, d_max, cap_quantile):
+    """ragged_reach, at every hop count up to d_max + 1 and both signs,
+    holds reach_sets' row as a set wherever that row did not overflow,
+    and overflows (with an empty row) where the NI index did."""
+    rng = np.random.default_rng(seed)
+    gj, nj, gt, nt = _pair(seed + 100, int(rng.integers(40, 100)),
+                           int(rng.integers(120, 320)), d_max, cap_quantile)
+    nodes = rng.integers(0, gt.num_nodes, 64)
+    nodes[:4] = nodes[0]                     # repeated nodes
+    for hops in range(d_max + 2):
+        for sign in (+1, -1):
+            ids, off, of = T.ragged_reach(nt, nodes, hops, sign)
+            want, want_of = J.reach_sets(nj, nodes, hops, sign)
+            assert ids.dtype == np.int32 and off.shape == (len(nodes) + 1,)
+            np.testing.assert_array_equal(of, want_of)
+            for i in range(len(nodes)):
+                row = ids[off[i]:off[i + 1]]
+                if of[i]:
+                    assert row.size == 0
+                    continue
+                assert set(row.tolist()) == set(
+                    want[i][want[i] >= 0].tolist())
+                if hops <= d_max:        # the NI rows are disjoint
+                    assert row[0] == nodes[i]
+                    assert len(np.unique(row[1:])) == row.size - 1
+    if cap_quantile < 1.0:
+        assert of.any()

@@ -14,6 +14,7 @@ import repro_torch.data as TD
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import radix_join as krad
 from repro_torch.kernels.merge_probe import merge_probe_cuda
+from repro_torch.kernels.sorted_intersect import intersect_any_ragged_cuda
 
 A_INV = (1 << 31) - 1
 B_INV = (1 << 31) - 2
@@ -339,6 +340,87 @@ def test_intersect_any_kernel(dev, p, a, b):
     torch.cuda.synchronize()
 
 
+def _ragged_pairs(rng, la, lb, hit_share=0.5):
+    """Rows of random ids of lengths la[p], lb[p]; in about hit_share of
+    the pairs with both rows nonempty, one a-id is planted in b."""
+    a = [rng.integers(0, 1 << 20, n) for n in la]
+    b = [rng.integers(1 << 20, 1 << 21, n) for n in lb]
+    for x, y in zip(a, b):
+        if len(x) and len(y) and rng.random() < hit_share:
+            y[rng.integers(0, len(y))] = x[rng.integers(0, len(x))]
+    return a, b
+
+
+def _ragged_on(dev, rows, shift):
+    """(ids, offsets [P + 1]) on dev; the ids tensor starts `shift` ids
+    into its allocation, so its 16-byte alignment varies."""
+    lens = [len(r) for r in rows]
+    flat = np.concatenate([np.zeros(shift, np.int64), *rows]).astype(np.int32)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return _on(dev, flat)[shift:], _on(dev, off)
+
+
+# row lengths (a, b) of each case; the path's: forward rows of 1-25 ids,
+# backward rows mostly short with a tail of hubs up to 8,193 ids
+_RAGGED_CASES = {
+    "one_pair": ([1], [8193]),
+    "one_pair_swapped": ([8193], [3]),
+    "empty_rows": ([0, 5, 0, 25, 3, 0], [7, 0, 0, 8193, 1, 600]),
+    "hubs_8193": ([25] * 40 + [1] * 9, [8193] * 49),
+    # around the tier limits of csrc/intersect_any.cu: staged 32, streamed
+    # 64 (group) and 1,024 (warp), the block's 1,024-id stage tiles
+    "tiers": ([1, 32, 5, 32, 33, 32, 32, 1000, 1025, 3000],
+              [64, 65, 63, 1024, 40, 1025, 4097, 1200, 5000, 3000]),
+}
+
+
+@pytest.mark.parametrize("shift", [0, 1, 3])
+@pytest.mark.parametrize("case", [*_RAGGED_CASES, "path_1024"])
+def test_intersect_any_ragged_kernel(dev, case, shift):
+    rng = np.random.default_rng(len(case) + shift)
+    if case == "path_1024":
+        la = rng.integers(1, 26, 1024)
+        lb = np.where(rng.random(1024) < 0.9, rng.integers(0, 65, 1024),
+                      rng.choice([513, 2048, 4096, 4097, 8193], 1024))
+    else:
+        la, lb = _RAGGED_CASES[case]
+    a, b = _ragged_pairs(rng, la, lb)
+    # an id repeated within a row, and a hit at a b-row's last id
+    if len(a[-1]) > 1:
+        a[-1][1] = a[-1][0]
+    if len(b[0]) and len(a[0]):
+        b[0][-1] = a[0][-1]
+    args = (*_ragged_on(dev, a, shift), *_ragged_on(dev, b, 3 - shift))
+    got = ops.intersect_any_ragged(*args)
+    want = ref.intersect_any_ragged_ref(*args)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < len(la) or len(la) == 1
+    torch.cuda.synchronize()
+
+
+def test_intersect_any_ragged_binding_raises(dev):
+    ids, off = _on(dev, [1, 2, 3]), _on(dev, [0, 1, 3])
+    with pytest.raises(ValueError):               # P differs
+        ops.intersect_any_ragged(ids, _on(dev, [0, 3]), ids, off)
+    with pytest.raises(ValueError):               # no P + 1 entry
+        ops.intersect_any_ragged(ids, off[:0], ids, off[:0])
+    with pytest.raises(ValueError):               # 2-D offsets
+        ops.intersect_any_ragged(ids, off[None], ids, off[None])
+    with pytest.raises(ValueError):               # offsets on the CPU
+        ops.intersect_any_ragged(ids, off.cpu(), ids, off)
+    with pytest.raises(TypeError):
+        intersect_any_ragged_cuda(ids, off.long(), ids, off)
+    with pytest.raises(ValueError):
+        intersect_any_ragged_cuda(ids, off, ids[::2], off)
+    with pytest.raises(RuntimeError):
+        ops.intersect_any_ragged(ids.cpu(), off.cpu(), ids.cpu(), off.cpu(),
+                                 impl="cuda")
+    # offsets outside the ids are clipped on the card, never read past
+    got = ops.intersect_any_ragged(ids, _on(dev, [-4, 1, 99]), ids, off)
+    assert got.tolist() == [1, 1]
+    torch.cuda.synchronize()
+
+
 def test_cuda_engine_matches_cpu_engine(dev):
     dt = T.Dataset.build(TD.DATASETS["lubm"](scale=0.3, seed=1))
     ec, eg = dt.engine("rdf_h", device="cpu"), dt.engine("rdf_h")
@@ -382,3 +464,26 @@ def test_cuda_connectivity_vectorized_matches_host_mask(dev):
         np.testing.assert_array_equal(
             got, T.connectivity_mask(g, ni, a, b, 4, bi))
     assert kernel.launches == 9             # 3 chunks, then 3 each way
+
+
+def test_cuda_connectivity_vectorized_launches_ragged_entry(dev):
+    """One intersect_any_ragged launch a chunk, none of the padded entry,
+    at hops within d_max and beyond it (d_max = 1, d_c = 4)."""
+    g = TD.random_graph(n_nodes=90, n_edges=300, n_preds=3, seed=8)
+    kernel = ops.cuda_kernels()["intersect_any"]
+    rng = np.random.default_rng(8)
+    a = rng.integers(0, g.num_nodes, 300)
+    b = rng.integers(0, g.num_nodes, 300)
+    for d_max in (1, 2):
+        ni = T.build_ni_index(g, d_max=d_max, cap_quantile=0.7)
+        kernel.reset()
+        timings = {}
+        got = T.connectivity_mask_vectorized(g, ni, a, b, 4, True, chunk=128,
+                                             device="cuda", timings=timings)
+        np.testing.assert_array_equal(
+            got, T.connectivity_mask(g, ni, a, b, 4, True))
+        assert kernel.entry_launches == {"intersect_any": 0,
+                                         "intersect_any_ragged": 6}
+        assert timings["fallback_pairs"] > 0
+        assert set(timings) == {"gather", "upload", "kernel", "fallback",
+                                "fallback_pairs"}

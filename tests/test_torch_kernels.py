@@ -520,6 +520,60 @@ def test_intersect_any_padding_is_never_a_hit():
     assert not want.any()
 
 
+def _ragged(rows):
+    """The valid (>= 0) entries of each -1 padded row, in order: (ids,
+    offsets [P + 1])."""
+    rows = np.asarray(rows)
+    valid = rows >= 0
+    off = np.concatenate([[0], np.cumsum(valid.sum(axis=1))])
+    return rows[valid].astype(np.int32), off.astype(np.int32)
+
+
+@pytest.mark.parametrize("p,a,b", [(1, 1, 1), (5, 7, 11), (64, 32, 64),
+                                   (257, 16, 8), (100, 130, 20)])
+def test_intersect_any_ragged_matches_pallas(p, a, b):
+    """The padded rows of the intersect_any grid go to the Pallas kernel;
+    the same rows compacted to ragged form (empty where all padding, ids
+    repeated within rows, one row's order reversed) to the port."""
+    rng = np.random.default_rng(p * 7 + a * 3 + b)
+    x = np.where(rng.random((p, a)) < 0.7,
+                 rng.integers(0, 50, (p, a)), -1).astype(np.int32)
+    y = np.where(rng.random((p, b)) < 0.7,
+                 rng.integers(0, 50, (p, b)), -1).astype(np.int32)
+    x[::3] = -1                             # all-padding a-rows
+    y[1::4] = -1                            # all-padding b-rows
+    x[:, -1] = np.where(x[:, 0] >= 0, x[:, 0], x[:, -1])   # repeated ids
+    y[-1] = y[-1, ::-1]
+    want = np.asarray(jops.intersect_any(x, y, impl="interpret"))
+    xa, xo = _ragged(x)
+    ya, yo = _ragged(y)
+    for impl in ("auto", "ref"):
+        got = tops.intersect_any_ragged(xa, xo, ya, yo, impl=impl)
+        assert got.dtype == torch.int32
+        _eq(got, want)
+    assert not want[::3].any()
+
+
+def test_intersect_any_ragged_plain_version_checks_offsets():
+    ids, off = _t([1, 2, 3]), _t([0, 2, 3])
+    _eq(tops.intersect_any_ragged(ids, off, _t([3, 9]), _t([0, 0, 2])),
+        [0, 1])
+    for bad in ([0, 3, 2], [1, 2, 3], [0, 2, 4], [0, 3]):
+        with pytest.raises(ValueError):
+            tops.intersect_any_ragged(ids, _t(bad), ids, off)
+    with pytest.raises(ValueError):
+        tops.intersect_any_ragged(ids, off, ids, off, impl="pallas")
+    with pytest.raises(RuntimeError):
+        tops.intersect_any_ragged(ids, off, ids, off, impl="cuda")
+    # no pairs, and ids of any sign
+    _eq(tops.intersect_any_ragged(_t([]), _t([0]), _t([]), _t([0])), [])
+    _eq(tops.intersect_any_ragged(_t([-5]), _t([0, 1]), _t([-5, 7]),
+                                  _t([0, 2])), [1])
+    kernel = tops.cuda_kernels()["intersect_any"]
+    assert kernel.entry_launches == {"intersect_any": 0,
+                                     "intersect_any_ragged": 0}
+
+
 # --------------------------- bloom signatures -------------------------- #
 def test_bloom_helpers_match_reference():
     """build_bloom, bloom_query_sig and bloom_prefilter on NI rows of
