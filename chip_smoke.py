@@ -45,6 +45,23 @@ exits non-zero without its final line:
             expand_gather_main_shape), and merge_probe_shapes times the
             merge path, the bisection kernel and the searchsorted pair in
             turn in one trace at every probe shape, in 5 rounds
+  serve     the main phase's 12 templates through the serving tier
+            (repro_torch.serve.QueryServer) on the same Dataset, each
+            future held to the main engine's result (a truncated result,
+            cut at max_rows in the plan's row order, to the main engine's
+            run of the template's canonical form, which a server plans):
+            a server cold then warm (the warm round must hit the plan
+            cache 12 times and launch no interval_count; the phase must
+            launch every MAIN_KERNELS kernel), its snapshot restored into
+            a fresh server (no interval_count launch), a server with the
+            result cache whose repeat round launches nothing, and three
+            faults of repro_torch.testing.faults that heal by the first
+            retry (corrupt_capacity and raise at fused_probe, raise at
+            reach_gather), each exact and undegraded, then a failing
+            expand_segments launch that must fail its query with the
+            KernelError, unretried and undegraded; prints the server's
+            latency percentiles and qps from its metrics registry, its
+            cache gauges, the phase's peak memory and one EXPLAIN
   bloom     6 queries with exact keywords through SPath(NI2) with the
             bloom prefilter (EngineConfig(check_policy="always",
             use_bloom=True)), cold then warm: bitmask_contains must have
@@ -854,7 +871,7 @@ def main_phase(ds, n_queries: int):
     import repro_torch.core.engine as engine_mod
     import repro_torch.core.matching as matching
     from repro_torch.data import random_query
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import fused_join, ops
 
     g = ds.graph
     gpu = ds.engine("rdf_h", device=DEVICE)
@@ -875,14 +892,19 @@ def main_phase(ds, n_queries: int):
     inputs = {"probe": {}, "expand": {}}     # first inputs of each shape
     check, join_radix, probe = (engine_mod.check_interval_candidates,
                                 matching._join_radix, ops.radix_probe)
-    merge, expand = ops.merge_probe, ops.expand_gather
+    # the staged and reach-join probes go through ops.merge_probe, the
+    # fused chain's through fused_join._probe
+    merge, fused, expand = (ops.merge_probe, fused_join._probe,
+                            ops.expand_gather)
 
-    def tap_merge(a, b, **kw):
-        start, cnt = merge(a, b, **kw)
-        shape = (a.shape[0], b.shape[0])
-        probes.append({"shape": shape, "cnt": cnt})
-        inputs["probe"].setdefault(shape, (a, b))
-        return start, cnt
+    def tapped(fn):
+        def tap(a, b, *rest, **kw):
+            start, cnt = fn(a, b, *rest, **kw)
+            shape = (a.shape[0], b.shape[0])
+            probes.append({"shape": shape, "cnt": cnt})
+            inputs["probe"].setdefault(shape, (a, b))
+            return start, cnt
+        return tap
 
     def tap_expand(a_rows, b_rows, start, cnt, limit, cap, new_sel=(),
                    **kw):
@@ -913,7 +935,8 @@ def main_phase(ds, n_queries: int):
         return probe(*a, **kw)
     engine_mod.check_interval_candidates = tap_check
     matching._join_radix, ops.radix_probe = tap_join, tap_probe
-    ops.merge_probe, ops.expand_gather = tap_merge, tap_expand
+    ops.merge_probe, ops.expand_gather = tapped(merge), tap_expand
+    fused_join._probe = tapped(fused)
     try:
         reset_launches()
         torch.cuda.synchronize()
@@ -947,6 +970,7 @@ def main_phase(ds, n_queries: int):
         engine_mod.check_interval_candidates = check
         matching._join_radix, ops.radix_probe = join_radix, probe
         ops.merge_probe, ops.expand_gather = merge, expand
+        fused_join._probe = fused
     if check_launches["cold"] > checks["launched"]:
         fail(f"main: {check_launches['cold']} interval_count launches for "
              f"{checks['launched']} check calls that launched")
@@ -983,6 +1007,7 @@ def main_phase(ds, n_queries: int):
     cpu_check_s = time.perf_counter() - t0
 
     stats = [results[("cold", i)].stats for i in range(n_queries)]
+    served, serve_ref_s = serve_references(gpu, queries, results, stats)
     summary = {
         "phase": "main", "queries": n_queries,
         "qps_cold": n_queries / lat["cold_wall"],
@@ -1023,6 +1048,7 @@ def main_phase(ds, n_queries: int):
                                          ("warm", n_expands["cold"]))},
         "wall_s": wall, "cpu_checked": list(cpu_checked),
         "cpu_check_s": cpu_check_s, "warm_profile": profile,
+        "serve_reference_s": serve_ref_s,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     emit(summary)
@@ -1038,7 +1064,7 @@ def main_phase(ds, n_queries: int):
         if shapes:
             top = max(inputs[kind], key=shapes.count)
             common[kind] = (inputs[kind][top], shapes.count(top))
-    return launches, by_run, conn, common
+    return launches, by_run, conn, common, served
 
 
 def main_shape_rows(common) -> list:
@@ -1092,6 +1118,229 @@ def main_shape_rows(common) -> list:
                             start, cnt, limit, cap, new_sel)
         row["shape"]["calls_of_this_shape"] = calls
     return out
+
+
+def result_digest(res) -> str:
+    """The result set of a MatchResult as a digest: its distinct rows with
+    the columns in query-node order, sorted, hashed, and the row count."""
+    import hashlib
+    import numpy as np
+    rows = np.asarray(res.rows)[:, np.argsort(res.cols)]
+    if len(rows):
+        rows = np.unique(rows, axis=0)
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    return f"{hashlib.sha256(rows.tobytes()).hexdigest()}:{len(rows)}"
+
+
+def serve_references(gpu, queries, results, stats):
+    """What the serve phase holds its servers to, from the main phase's
+    engine: each template's result as a digest.  A server plans the
+    template's canonical numbering (serve.plan_cache.canonicalize); a
+    complete result is the same set under any numbering, but a result
+    cut at max_rows keeps rows in the plan's order, so a truncated
+    template's digest is the main engine's run of its canonical form,
+    remapped to the template's numbering."""
+    from repro_torch.serve.plan_cache import canonicalize, remap_result
+    t0 = time.perf_counter()
+    digests = []
+    for i, q in enumerate(queries):
+        res = results[("cold", i)]
+        if stats[i].truncated:
+            canon, order, _ = canonicalize(q)
+            res = remap_result(gpu.execute(canon), order)
+            if not res.stats.truncated:
+                fail(f"query {i}: the canonical form ran untruncated")
+        digests.append(result_digest(res))
+    served = {"queries": queries, "digests": digests,
+              "truncated": [s.truncated for s in stats],
+              "reach": [bool(s.conn_strategies.get("reach"))
+                        for s in stats]}
+    return served, time.perf_counter() - t0
+
+
+def serve_round(srv, queries, want, where: str) -> dict:
+    """One round of `queries` through QueryServer.submit_many + flush,
+    every result held to the main phase's digest; returns the round's
+    wall time, launches and plan-cache hits."""
+    import torch
+    hits0 = srv.plan_cache.hits
+    start = launch_counts()
+    t0 = time.perf_counter()
+    futures = srv.submit_many(queries)
+    srv.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall, "qps": len(queries) / wall,
+           "plan_cache_hits": srv.plan_cache.hits - hits0,
+           "launches": {k: v - start[k] for k, v in launch_counts().items()},
+           "result_cache_hits": 0, "warm": 0, "degraded": 0}
+    for f, q, d in zip(futures, queries, want):
+        res = f.result()                 # a failed future raises here
+        check_rows(res, srv.dataset.num_nodes, q.num_nodes)
+        if result_digest(res) != d:
+            fail(f"serve {where}: a result differs from the main phase's")
+        out["result_cache_hits"] += bool(res.stats.result_cache_hit)
+        out["warm"] += bool(res.stats.cache_hit)
+        out["degraded"] += bool(res.stats.degraded_steps)
+    return out
+
+
+def serve_phase(ds, served) -> None:
+    """The main phase's templates through the serving tier on the card:
+    a QueryServer cold then warm, a snapshot restored into a fresh
+    server, a server with the result cache, and three injected faults
+    that heal by the first retry — every result equal to the main
+    phase's engine's (serve_references) — and a kernel launch that fails
+    and must fail its query on the governed server."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import KernelError, ops
+    from repro_torch.serve import GovernorConfig, QueryError, QueryServer
+    from repro_torch.testing import Fault, FaultInjector
+
+    queries, want = served["queries"], served["digests"]
+    n = len(queries)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_phase = time.perf_counter()
+    # calibrate=False: the warm round replays every learned plan (online
+    # calibration may move a τ and re-decide a template's check)
+    srv = QueryServer(ds, "rdf_h", calibrate=False, device=DEVICE)
+    rounds = {"cold": serve_round(srv, queries, want, "cold"),
+              "warm": serve_round(srv, queries, want, "warm")}
+    launches = read_launches("serve", MAIN_KERNELS)
+    warm = rounds["warm"]
+    if warm["plan_cache_hits"] != n or warm["warm"] != n:
+        fail(f"serve: the warm round hit the plan cache "
+             f"{warm['plan_cache_hits']} times for {n} templates")
+    if warm["launches"]["interval_count"]:
+        fail(f"serve: the warm round launched interval_count "
+             f"{warm['launches']['interval_count']} times")
+    m = srv.metrics
+    tele = srv.telemetry()
+    explain = srv.explain(queries[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.snap")
+        manifest = srv.save_snapshot(path)
+        metrics = {
+            "p50_ms": m.histogram("latency_s").percentile(50) * 1e3,
+            "p95_ms": m.histogram("latency_s").percentile(95) * 1e3,
+            "p50_ms_cold": m.histogram("latency_cold_s").percentile(50) * 1e3,
+            "p95_ms_cold": m.histogram("latency_cold_s").percentile(95) * 1e3,
+            "p50_ms_warm": m.histogram("latency_warm_s").percentile(50) * 1e3,
+            "p95_ms_warm": m.histogram("latency_warm_s").percentile(95) * 1e3,
+            "qps_cold": rounds["cold"]["qps"], "qps_warm": warm["qps"],
+            "counters": tele["metrics"]["counters"],
+            "gauges": tele["metrics"]["gauges"]}
+        caches = {"plan_cache": tele["plan_cache"],
+                  "reach_cache": tele["reach_cache"], "batch": tele["batch"]}
+        del srv, m, tele
+        torch.cuda.empty_cache()
+
+        # a fresh server restores the snapshot: the plans replay warm,
+        # with no neighborhood check
+        fresh = QueryServer(ds, "rdf_h", calibrate=False, device=DEVICE)
+        fresh.restore_snapshot(path)
+        rounds["restored"] = serve_round(fresh, queries, want, "restored")
+    restored = rounds["restored"]
+    if restored["launches"]["interval_count"] or restored["warm"] != n:
+        fail(f"serve: the restored round ran {n - restored['warm']} "
+             f"templates cold, with {restored['launches']['interval_count']}"
+             " interval_count launches")
+    del fresh
+    torch.cuda.empty_cache()
+
+    # the result cache serves a repeat with no engine work; the engine
+    # caches no truncated result, so the round takes the templates whose
+    # main-phase result was complete
+    whole = [i for i in range(n) if not served["truncated"][i]]
+    if not whole:
+        fail("serve: every template's result was truncated")
+    rc = QueryServer(ds, "rdf_h", calibrate=False, result_cache_size=64,
+                     device=DEVICE)
+    sub = ([queries[i] for i in whole], [want[i] for i in whole])
+    rounds["result_cache_first"] = serve_round(rc, *sub, "result cache")
+    rounds["result_cache_repeat"] = rep = serve_round(rc, *sub,
+                                                      "result cache repeat")
+    if any(rep["launches"].values()) or rep["result_cache_hits"] != len(whole):
+        fail(f"serve: the result-cache repeat launched {rep['launches']} "
+             f"with {rep['result_cache_hits']} hits for {len(whole)}")
+    del rc
+    torch.cuda.empty_cache()
+
+    # faults that heal by the first retry (the governor's transient retry
+    # or the engine's capacity retry), on a governed server: the fused
+    # probe's on the templates without connection edges, the reach
+    # gather's on the last template whose connection edge the main phase
+    # ran as a reach-join.  The ladder's rungs past
+    # the first retry run nested joins (a quadratic join at this size),
+    # so no case may need one
+    plain = [i for i in range(n) if not queries[i].connections]
+    reach = [i for i in range(n) if served["reach"][i]]
+    if not reach:
+        fail("serve: no template ran its connection edge as a reach-join")
+    gov = QueryServer(ds, "rdf_h", calibrate=False, device=DEVICE,
+                      governor=GovernorConfig(retry_backoff_s=0.001))
+    cases = [("fused_probe", "corrupt_capacity", plain),
+             ("fused_probe", "raise", plain),
+             ("reach_gather", "raise", reach[-1:])]
+    chaos = []
+    for point, kind, idx in cases:
+        with FaultInjector(Fault(point, kind, first=1)) as fi:
+            r = serve_round(gov, [queries[i] for i in idx],
+                            [want[i] for i in idx], f"{point} {kind}")
+        if not fi.fired:
+            fail(f"serve: the {kind} fault at {point} never fired")
+        if r["degraded"]:
+            fail(f"serve: the {kind} fault at {point} needed the ladder")
+        chaos.append({"point": point, "kind": kind, "templates": idx,
+                      "fired": fi.fired, "calls": fi.calls,
+                      "wall_s": r["wall_s"]})
+    # a kernel that fails to launch fails its query: the governor neither
+    # retries it nor answers it from a rung with the plain versions
+    kernel = ops.cuda_kernels()["expand_segments"]
+    for symbol in kernel.entries:
+        kernel._bind(symbol)
+    bound = dict(kernel._fns)
+    gv = gov.governor
+    before = (gv.transient_retries, gv.ladder_entries, gv.degraded_queries)
+    kernel._fns.update({s: (lambda *a: 1) for s in bound})
+    try:
+        f = gov.submit(queries[plain[0]])
+        gov.flush()
+        try:
+            f.result()
+            fail("serve: a query whose expand kernel failed to launch "
+                 "was answered")
+        except QueryError as e:
+            if not isinstance(e.__cause__, KernelError):
+                fail(f"serve: a failed launch surfaced as {e.__cause__!r}")
+    finally:
+        kernel._fns.update(bound)
+    after = (gv.transient_retries, gv.ladder_entries, gv.degraded_queries)
+    if after != before:
+        fail(f"serve: a failed launch was retried or degraded "
+             f"({before} -> {after})")
+    chaos.append({"point": "expand_segments launch", "kind": "KernelError",
+                  "templates": plain[:1], "raised": True})
+    gov_t = gov.telemetry()["governor"]
+    del gov
+    torch.cuda.empty_cache()
+
+    emit({"phase": "serve", "templates": n, "metrics": metrics,
+          "caches": caches, "snapshot": {k: manifest[k] for k in
+                                         ("format_version", "plans",
+                                          "bytes")},
+          "rounds": rounds, "launches": launches, "chaos": chaos,
+          "governor": {k: gov_t[k] for k in
+                       ("transient_retries", "transient_recoveries",
+                        "ladder_entries", "degraded_queries", "exhausted")},
+          "result_cache_templates": whole,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+          / 2**30,
+          "seconds": time.perf_counter() - t_phase})
+    emit({"phase": "serve_explain", "template": 0, "text": explain})
 
 
 def pct(xs, p):
@@ -1324,9 +1573,12 @@ def main() -> None:
           "seconds": time.perf_counter() - t0})
 
     rows = kernel_phase(ds, np.random.default_rng(0))
-    main_launches, main_runs, conn, common = main_phase(ds, N_QUERIES)
+    main_launches, main_runs, conn, common, served = main_phase(ds,
+                                                                N_QUERIES)
     rows += main_shape_rows(common)
     del common
+    serve_phase(ds, served)
+    del served
     bloom_launches, bloom_runs = bloom_phase(ds)
     conn_launches = conn_phase(ds, conn)
     # each kernel's launches come from the phase that runs its path, and

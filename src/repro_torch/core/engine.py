@@ -18,9 +18,9 @@ data-determined parts of the plan into it: per-component join orders, the
 connection-edge order, the candidate masks, and the exact join output
 sizes (`join_seq`).  Repeat executions replay all of that — no planning
 DP, no signature check, no capacity-overflow retries, and the same table
-capacities.  The reference's serving layer (`repro.serve`, not ported yet)
-caches PreparedQuery objects keyed by canonical template fingerprint;
-`Engine.execute` keeps the one-shot behavior by preparing fresh per call.
+capacities.  The serving layer (`repro_torch.serve`) caches PreparedQuery
+objects keyed by canonical template fingerprint; `Engine.execute` keeps the
+one-shot behavior by preparing fresh per call.
 
 The engine runs on ``EngineConfig.device`` ("cuda" by default): the graph's
 edge tensors, the NI tensors and the candidate masks are uploaded there once
@@ -47,7 +47,7 @@ import torch
 
 from .graph import RDFGraph
 from .ni_index import NIIndex
-from .dataset import Dataset, ENGINE_VARIANTS
+from .dataset import Dataset, ENGINE_VARIANTS, interval_footprint_hit
 from .query import QueryTemplate, ConnectionEdge
 from .signature import (build_requirements, check_interval_candidates,
                         bloom_prefilter, build_bloom)
@@ -138,9 +138,7 @@ class QueryStats:
     # rungs walked before this execution succeeded, in order — empty for a
     # healthy primary execution.  The Calibrator skips degraded stats.
     degraded_steps: list = field(default_factory=list)
-    # cooperative budget checkpoints hit; the serving tier's budget is
-    # not ported, so this stays 0 (kept for the to_dict() key set)
-    budget_checks: int = 0
+    budget_checks: int = 0              # cooperative budget checkpoints hit
 
     # Stable flat schema: scalar counters first, then the two strategy
     # dicts and a plan summary.  Server telemetry rollups and benchmarks
@@ -209,7 +207,7 @@ class MatchResult:
 class PreparedQuery:
     """Template-level execution state: computed once by `Engine.prepare`,
     enriched by the first `execute_prepared` run, replayed by every later
-    one.  `repro.serve.plan_cache.PlanCache` LRU-caches these keyed by
+    one.  `repro_torch.serve.plan_cache.PlanCache` LRU-caches these keyed by
     (dataset id, canonical template fingerprint).
 
     prepare() fills the template-dependent fields: candidate intervals,
@@ -236,6 +234,12 @@ class PreparedQuery:
     # learned on first execution ------------------------------------- #
     executions: int = 0
     masks: tuple | None = None          # (pass_masks, pass_np, after)
+    # host-only serializable form of `masks` — (pass_np, after) with no
+    # device tensors.  Written by snapshot serialization
+    # (repro_torch.serve.snapshot); `_candidate_masks` rebuilds the device
+    # tensors from it lazily on the first post-restore execution, so a
+    # restored plan never re-runs the signature check
+    masks_host: tuple | None = None
     comp_orders: dict = field(default_factory=dict)   # comp idx -> order
     comp_costs: dict = field(default_factory=dict)    # comp idx -> (c, g)
     conn_order: list[int] | None = None
@@ -263,8 +267,32 @@ class PreparedQuery:
     def warm(self) -> bool:
         return self.executions > 0
 
+    def reset_learned(self) -> None:
+        """Drop everything the first execution learned (masks, join
+        orders, join_seq) while keeping the template-level fields.  Used
+        when a revalidation decides the learned state can't be replayed —
+        a flipped §4.3 decision, or a delta that touched the template's
+        candidate footprint."""
+        self.masks = None
+        self.masks_host = None
+        self.comp_orders = {}
+        self.comp_costs = {}
+        self.conn_order = None
+        self.conn_costs = (0.0, 0.0)
+        self.conn_impls = None
+        self.join_seq = []
+        self.join_est_seq = []
+        self.executions = 0
+
 
 class Engine:
+    # what a with_config sibling shares: every attribute __init__ sets but
+    # cfg and the server-owned reach cache (a test holds the two lists
+    # equal); the tracer too, so degraded-rung spans land in the
+    # primary's trace
+    _SHARED = ("dataset", "graph", "ni", "device", "idmap", "stats",
+               "_dev_cache", "tracer")
+
     def __init__(self, dataset: "Dataset | RDFGraph",
                  ni: "NIIndex | EngineConfig | None" = None,
                  cfg: EngineConfig | None = None,
@@ -295,6 +323,11 @@ class Engine:
         # device-resident NI tensors ((sign, d) keys), edge tensors and
         # bloom signatures
         self._dev_cache: dict = {}
+        # optional server-owned reach cache shared across queries (reach
+        # sets go stale only via Dataset.apply_delta, which the serving
+        # tier pairs with ReachCache.invalidate_delta); when None each
+        # execution gets its own per-query cache as before
+        self.reach_cache: ReachCache | None = None
         # observability: the serving layer installs its Tracer here; the
         # default no-op tracer keeps bare-engine hot paths at ~zero cost
         self.tracer = NULL_TRACER
@@ -331,6 +364,66 @@ class Engine:
     def execute(self, query: QueryTemplate) -> MatchResult:
         return self.execute_prepared(self.prepare(query))
 
+    def with_config(self, cfg: EngineConfig) -> "Engine":
+        """A sibling engine over the same dataset with a different
+        configuration: shares the graph, NI index, IDMap, dataset stats,
+        device tensor cache (NI, edge and bloom tensors) and device, but
+        NOT the server-owned reach cache — a degraded retry
+        (repro_torch.serve.governor) must execute in isolation from state
+        a faulty primary run may have touched, so the sibling falls back
+        to per-query reach caches."""
+        eng = object.__new__(Engine)    # a fresh instance: nothing set on
+        for name in self._SHARED:       # this one's dict but what it shares
+            setattr(eng, name, getattr(self, name))
+        eng.cfg = cfg
+        eng.reach_cache = None
+        return eng
+
+    def revalidate(self, pq: PreparedQuery, version: int) -> bool:
+        """Refresh a PreparedQuery after the calibrated thresholds moved.
+
+        Only the §4.3 check decision depends on the thresholds, and
+        re-deciding is cheap (pure template arithmetic) — so instead of
+        discarding the plan, re-run `decide` and keep everything learned
+        (masks, join orders, join_seq) whenever the decision is stable.
+        A flipped decision changes the candidate masks and hence every
+        downstream table, so then the learned execution state is reset
+        (the template-level fields stay valid).  Returns True iff the
+        learned state survived."""
+        cfg = self.cfg
+        kept = True
+        if cfg.check_policy == "selective":
+            decision = decide(pq.query, pq.trees_per_comp, pq.cand_sizes,
+                              self.stats, cfg.thresholds, k=cfg.d_check)
+            if decision.use_check != pq.use_check:
+                pq.reset_learned()
+                kept = False
+            pq.decision = decision
+            pq.use_check = decision.use_check
+        pq.version = version
+        return kept
+
+    def revalidate_delta(self, pq: PreparedQuery,
+                         touched: np.ndarray | None) -> bool:
+        """Refresh a PreparedQuery after a Dataset delta (same digest
+        lineage, bumped version, stable label space).
+
+        The only learned state a data change can make *wrong* is the
+        candidate masks — every pass bit is a function of the NI rows of
+        the candidates in the template's intervals, and stale join
+        orders/capacities/strategies self-heal (planned_join retries on
+        overflow, ReplayEstimator falls back to analytic estimates).  So
+        the plan survives intact iff no touched node falls inside any of
+        its candidate intervals; otherwise the learned state resets and
+        the next execution re-learns against the new data.  Returns True
+        iff the learned state survived."""
+        iv_pairs = [(int(pq.iv[q, 0]), int(pq.iv[q, 1]))
+                    for q in range(pq.query.num_nodes)]
+        if interval_footprint_hit(iv_pairs, touched):
+            pq.reset_learned()
+            return False
+        return True
+
     # -------------------------------------------------------------- #
     def _candidate_masks(self, pq: PreparedQuery) -> tuple:
         """Per-node candidate pass specs.  With the check on, each node
@@ -342,6 +435,21 @@ class Engine:
         template): cached on the PreparedQuery, so warm executions skip
         the whole signature check."""
         if pq.masks is not None:
+            return pq.masks
+        if pq.masks_host is not None:
+            # warm restart: rebuild device tensors from the snapshot's
+            # host-form masks — no signature check, no bloom, no NI
+            # touch; the restored plan replays exactly like a warm one
+            host_np, after = pq.masks_host
+            pass_masks = {}
+            for comp in pq.comps:
+                for q in comp:
+                    m = host_np.get(q)
+                    if m is not None:
+                        pass_masks[q] = torch.as_tensor(m, device=self.device)
+                    else:
+                        pass_masks[q] = (int(pq.iv[q, 0]), int(pq.iv[q, 1]))
+            pq.masks = (pass_masks, host_np, after)
             return pq.masks
         cfg = self.cfg
         query, iv = pq.query, pq.iv
@@ -380,7 +488,15 @@ class Engine:
         pq.masks = (pass_masks, pass_np, after)
         return pq.masks
 
-    def execute_prepared(self, pq: PreparedQuery) -> MatchResult:
+    def execute_prepared(self, pq: PreparedQuery,
+                         budget=None) -> MatchResult:
+        """`budget` is an optional duck-typed cooperative budget (see
+        repro_torch.serve.governor.Budget): the engine calls
+        ``budget.checkpoint(phase, rows=..., cap=..., stats=qs)`` at every
+        estimator-sized join and at each pipeline phase boundary, and the
+        budget raises its own typed error (carrying the partial QueryStats
+        it was handed) when a bound is blown.  The core never imports the
+        serving layer — any object with that method works."""
         t0 = time.perf_counter()
         qs = QueryStats()
         cfg = self.cfg
@@ -390,6 +506,15 @@ class Engine:
         qs.used_check = pq.use_check
         qs.cache_hit = pq.warm
         qs.prepare_time = 0.0 if pq.warm else pq.prepare_time
+        # current pipeline phase, mutated at phase boundaries so the
+        # record_join checkpoint attributes budget aborts to the right
+        # phase without threading a phase argument through the join stack
+        phase = ["check"]
+
+        def checkpoint(rows=0, cap=0):
+            if budget is not None:
+                qs.budget_checks += 1
+                budget.checkpoint(phase[0], rows=rows, cap=cap, stats=qs)
 
         # ---- candidate masks ------------------------------------------
         t1 = time.perf_counter()
@@ -402,6 +527,9 @@ class Engine:
                        warm=pq.warm)
         qs.candidates_after = after
         qs.check_time = time.perf_counter() - t1
+        # deadline-only checkpoint: candidate counts are not join rows,
+        # so they don't charge the max_rows budget
+        checkpoint()
 
         # ---- per-component matching -----------------------------------
         t2 = time.perf_counter()
@@ -432,8 +560,13 @@ class Engine:
                 if not warm_replay:
                     pq.join_seq.append((int(actual), int(cap), str(impl)))
                     pq.join_est_seq.append(int(est))
+            # every estimator-sized join is a budget boundary: actual
+            # output rows charge max_rows, the executed capacity is
+            # checked against max_capacity, and the deadline is re-read
+            checkpoint(rows=int(actual), cap=int(cap))
 
         comp_tables: list[Table] = []
+        phase[0] = "match"
         for ci, (comp, trees) in enumerate(zip(pq.comps,
                                                pq.trees_per_comp)):
             with tracer.span("component", index=ci) as csp:
@@ -496,15 +629,18 @@ class Engine:
                 if csp.live:
                     csp.set(rows=tab.count, trees=len(trees))
                 comp_tables.append(tab)
+                checkpoint(cap=tab.cap)
         qs.match_time = time.perf_counter() - t2
 
         # ---- connection edges ------------------------------------------
         t3 = time.perf_counter()
+        phase[0] = "connections"
         with tracer.span("connections",
                          edges=len(query.connections)) as sp:
             final = self._process_connections(query, pq.comps,
                                               comp_tables, qs,
-                                              record_join, tel, pq=pq)
+                                              record_join, tel, pq=pq,
+                                              checkpoint=checkpoint)
             if sp.live:
                 sp.set(rows=final.count)
         qs.conn_time = time.perf_counter() - t3
@@ -568,7 +704,8 @@ class Engine:
                              comp_tables: list[Table],
                              qs: QueryStats, record_join=None,
                              tel: JoinTelemetry | None = None,
-                             pq: PreparedQuery | None = None) -> Table:
+                             pq: PreparedQuery | None = None,
+                             checkpoint=None) -> Table:
         """Connection-edge evaluation (Alg. 3): intra filters first (linear
         in table size), then cross-component merges.  The merge order comes
         from planner.plan_connections (cost-based with per-edge
@@ -578,6 +715,7 @@ class Engine:
         cross product, O(matches) output work) or the seed cross+filter
         path, per EngineConfig.connection_impl / the cost model.  A warm
         PreparedQuery supplies the cached edge order directly."""
+        ck = checkpoint if checkpoint is not None else (lambda **kw: None)
         tables = list(comp_tables)
         owner = {}
         for i, comp in enumerate(comps):
@@ -585,8 +723,10 @@ class Engine:
                 owner[q] = i
         group = list(range(len(tables)))       # table index per original comp
         # reach cache: connection edges sharing endpoint nodes (or
-        # re-filtered after merges) reuse each other's reach sets
-        rcache = ReachCache()
+        # re-filtered after merges) reuse each other's reach sets; a
+        # server-owned bounded cache extends the reuse across queries
+        rcache = (self.reach_cache if self.reach_cache is not None
+                  else ReachCache())
         n = self.graph.num_nodes
         cost_model = self.cfg.cost_model
 
@@ -723,6 +863,9 @@ class Engine:
                            max_dist=c.max_dist, rows=tables[gi].count,
                            reach_pairs=info.reach_pairs,
                            connected_pairs=info.connected_pairs)
+                # connection-edge boundary: deadline + capacity re-check
+                # (rows=0 — a filter materializes no new join rows)
+                ck(cap=tables[gi].cap)
 
         def apply_connection(c) -> None:
             gi, gj = find(owner[c.src]), find(owner[c.dst])
@@ -758,6 +901,9 @@ class Engine:
                     joined = injective_filter(self._retry(
                         cross_join, ta, tb, row_limit=self.cfg.max_rows))
                     qs.truncated |= joined.truncated
+                    # the cross path bypasses record_join, so charge its
+                    # materialized rows to the budget here
+                    ck(rows=joined.count, cap=joined.cap)
                     if joined.count:
                         rows = joined.rows[: joined.count].cpu().numpy()
                         a = rows[:, joined.cols.index(c.src)]
@@ -779,6 +925,7 @@ class Engine:
                            rows_a=info.rows_a, rows_b=info.rows_b,
                            reach_pairs=info.reach_pairs,
                            connected_pairs=info.connected_pairs)
+                ck(cap=joined.cap)
 
         intra = [c for c in query.connections
                  if find(owner[c.src]) == find(owner[c.dst])]
@@ -829,6 +976,7 @@ class Engine:
             tab = injective_filter(self._retry(
                 cross_join, tab, tables[r], row_limit=self.cfg.max_rows))
             qs.truncated |= tab.truncated
+            ck(rows=tab.count, cap=tab.cap)
         return tab
 
 

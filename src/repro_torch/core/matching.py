@@ -447,12 +447,22 @@ def _join_sorted(a: Table, b: Table, shared, new, cap, row_limit,
         clipped = np.clip(out_count - (csum - cnt_np.astype(np.int64)),
                           0, cnt_np.astype(np.int64))
         cnt = _i32(clipped, cnt.device)
-    rows = kops.expand_gather(a_rows_s, b_rows_s, start, cnt, out_count,
-                              cap, tuple(new))
+    rows = _merge_expand(a_rows_s, b_rows_s, start, cnt, out_count, cap,
+                         tuple(new))
     # The expand emits output slots in sorted-a order: the result is
     # lexicographically ordered by the join key and inherits it.
     return Table(cols=out_cols, rows=rows, count=out_count,
                  truncated=truncated, sort_order=key_cols)
+
+
+def _merge_expand(a_rows_s, b_rows_s, start, cnt, out_count: int, cap: int,
+                  new_sel) -> torch.Tensor:
+    """The expand of the staged and the uncapped fused sort-merge joins
+    (``kops.expand_gather``), a seam of its own as in the reference: the
+    fault point ``join_expand`` patches it, and the capped fused chain and
+    the radix join expand without it."""
+    return kops.expand_gather(a_rows_s, b_rows_s, start, cnt, out_count, cap,
+                              new_sel)
 
 
 def _join_sorted_fused(a: Table, b: Table, a_sel, b_sel, key_cols,
@@ -481,8 +491,8 @@ def _join_sorted_fused(a: Table, b: Table, a_sel, b_sel, key_cols,
     truncated = row_limit is not None and total > row_limit
     if cap is None:
         cap = _pow2(out_count)
-        rows = kops.expand_gather(a_rows_s, b_rows_s, start, cnt,
-                                  out_count, cap, tuple(new))
+        rows = _merge_expand(a_rows_s, b_rows_s, start, cnt, out_count,
+                             cap, tuple(new))
     elif out_count > cap:
         err = CapacityOverflow(out_count)
         err.resume = _ProbeResume(a_rows_s, b_rows_s, start, cnt,

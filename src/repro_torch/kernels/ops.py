@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import ref as _ref
+from ._build import KernelError
 from .ref import CheckSegment
 from .bitmask_contains import bitmask_contains_cuda
 from .interval_count import interval_check_cuda, interval_count_cuda
@@ -36,7 +37,7 @@ def on_cuda(t: torch.Tensor, impl: str) -> bool:
     if t.is_cuda:
         return True
     if impl == "cuda":
-        raise RuntimeError("impl='cuda' needs CUDA tensors")
+        raise KernelError("impl='cuda' needs CUDA tensors")
     return False
 
 

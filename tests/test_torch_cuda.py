@@ -435,6 +435,63 @@ def test_cuda_engine_matches_cpu_engine(dev):
     assert kernels["interval_count"].launches > 0
 
 
+def test_cuda_server_matches_cpu_server(dev, tmp_path):
+    """The serving tier on the card: cold, warm, and restored from a
+    snapshot, against the same server on the CPU."""
+    from repro_torch.serve import QueryServer
+    dt = T.Dataset.build(TD.DATASETS["lubm"](scale=0.3, seed=1))
+    pool = [TD.random_query(dt.graph, size=6, seed=s,
+                            n_connection=int(s >= 104))
+            for s in range(100, 106)]
+    cpu = QueryServer(dt, calibrate=False, device="cpu")
+    gpu = QueryServer(dt, calibrate=False)
+    assert gpu.engine.device.type == "cuda"
+    kernels = ops.cuda_kernels()
+    want = [f.result().result_set()
+            for f in cpu.submit_many(pool, wait=True)]
+    for run in ("cold", "warm"):
+        before = kernels["interval_count"].launches
+        got = [f.result() for f in gpu.submit_many(pool, wait=True)]
+        assert [r.result_set() for r in got] == want
+        assert all(r.stats.cache_hit == (run == "warm") for r in got)
+        if run == "warm":
+            assert kernels["interval_count"].launches == before
+    gpu.save_snapshot(tmp_path / "gpu.snap")
+    restored = QueryServer(dt, calibrate=False)
+    restored.restore_snapshot(tmp_path / "gpu.snap")
+    before = kernels["interval_count"].launches
+    got = [f.result() for f in restored.submit_many(pool, wait=True)]
+    assert [r.result_set() for r in got] == want
+    assert all(r.stats.cache_hit for r in got)
+    assert kernels["interval_count"].launches == before
+    assert restored.telemetry()["plan_cache"]["misses"] == 0
+
+
+def test_cuda_governed_server_raises_on_kernel_failure(dev, monkeypatch):
+    """Every kernel's launch reports a CUDA error: a governed server on the
+    card fails each query with the KernelError (phase 'execute') — no
+    retry, and no degraded rung answering with the plain versions."""
+    from repro_torch.kernels import KernelError
+    from repro_torch.serve import GovernorConfig, QueryError, QueryServer
+    dt = T.Dataset.build(TD.DATASETS["lubm"](scale=0.3, seed=1))
+    pool = [TD.random_query(dt.graph, size=6, seed=s,
+                            n_connection=int(s >= 104))
+            for s in range(100, 106)]
+    srv = QueryServer(dt, calibrate=False, governor=GovernorConfig())
+    for kernel in ops.cuda_kernels().values():
+        for symbol in kernel.entries:
+            kernel._bind(symbol)                # built and bound as usual
+            monkeypatch.setitem(kernel._fns, symbol, lambda *a: 1)
+    for f in srv.submit_many(pool, wait=True):
+        with pytest.raises(QueryError) as ei:
+            f.result()
+        assert ei.value.phase == "execute"
+        assert isinstance(ei.value.__cause__, KernelError)
+    tel = srv.governor.snapshot()
+    assert tel["ladder_entries"] == tel["transient_retries"] == 0
+    assert tel["degraded_queries"] == 0
+
+
 def test_cuda_bloom_engine_matches_cpu_engine(dev):
     dt = T.Dataset.build(TD.DATASETS["lubm"](scale=0.3, seed=1))
     cfg = dict(check_policy="always", use_bloom=True)

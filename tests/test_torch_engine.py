@@ -102,6 +102,29 @@ def test_always_check_variant_matches():
         _same_run(a, b)
 
 
+@pytest.mark.parametrize("variant", sorted(J.ENGINE_VARIANTS))
+def test_every_variant_matches_cold_and_warm(variant):
+    """Every engine variant (paper §6) against the reference on one
+    dataset built for it: stwig+ never checks, spath_ni2 always does, h3
+    checks at distance 3 over a depth-3 NI index, hvc over the
+    vertex-cover NI variant."""
+    gj = JD.DATASETS["lubm"](scale=0.05, seed=1)
+    gt = TD.DATASETS["lubm"](scale=0.05, seed=1)
+    dj = J.Dataset.build(gj, variant=variant)
+    dt = T.Dataset.build(gt, variant=variant)
+    assert sorted(dt.ni.entries) == sorted(dj.ni.entries)
+    ej, et = dj.engine(variant), dt.engine(variant, device="cpu")
+    assert et.cfg.check_policy == ej.cfg.check_policy
+    assert et.cfg.d_check == ej.cfg.d_check
+    for qj, qt in _queries(dj, dt, ((102, 0), (109, 1), (104, 0))):
+        pj, pt = ej.prepare(qj), et.prepare(qt)
+        assert pt.use_check == pj.use_check
+        for _ in ("cold", "warm"):
+            _same_run(ej.execute_prepared(pj), et.execute_prepared(pt))
+        assert pt.join_seq == pj.join_seq
+        assert pt.conn_impls == pj.conn_impls
+
+
 def test_from_arrays_on_a_jax_built_dataset():
     dj = J.Dataset.build(JD.DATASETS["imdb"](scale=0.05, seed=1))
     g = dj.graph
