@@ -62,6 +62,17 @@ exits non-zero without its final line:
             KernelError, unretried and undegraded; prints the server's
             latency percentiles and qps from its metrics registry, its
             cache gauges, the phase's peak memory and one EXPLAIN
+  delta     live deltas through QueryServer.apply_delta at full size: a
+            server warmed with one round of the 12 templates absorbs the
+            delta of examples/serve_queries.py (about num_edges / 200
+            deletes and the recombined inserts, incremental), then a
+            no-op delta that carries every NI tensor; after each, one
+            round whose results equal a fresh card engine's (its own cold
+            run for complete results, its run of the server's plan for
+            every result) and every carried device-cache tensor equals a
+            fresh upload; prints the delta's info, the carried and
+            re-uploaded keys and the migrated round's time against the
+            fresh engine's cold round
   bloom     6 queries with exact keywords through SPath(NI2) with the
             bloom prefilter (EngineConfig(check_policy="always",
             use_bloom=True)), cold then warm: bitmask_contains must have
@@ -76,9 +87,37 @@ exits non-zero without its final line:
             connectivity_mask; prints the seconds split into the host's
             reach gathering, the upload, the kernel with its copy back and
             the _exact_reach fallbacks, and the pairs the fallback decided
+  distributed
+            repro_torch.core.distributed over an NCCL group of one rank:
+            shard_check on the NI entry with the largest cap (every row,
+            about 177,342 x 4,096 ids) must equal ref.interval_count_ref
+            over the same rows, computed in chunks on the card, and launch
+            the interval_count entry of interval_count.cu (row
+            interval_count_shard times it at this shape);
+            gather_candidates must return the mask's first candidates;
+            both are timed
+  governed  governed serving on the card at lubm_like(scale=1): the
+            force_simple_impls rung runs nested joins and cross-product
+            connection edges, quadratic at full size.  A deadline below
+            the connection templates' primary time, admission control
+            that sheds part of a batch with RejectedError, a persistent
+            join_expand fault that drives the ladder past the first retry
+            and a template that fails at every rung until the breaker
+            quarantines it; every future exact (to an ungoverned card
+            engine), the truncate rung's (within its row cap) or its own
+            typed error, and the fault's and breaker's counters equal to
+            the CPU port's run of the same scenario
+  delta_rebuild
+            apply_delta's rebuild path (churn above churn_threshold) at
+            the governed phase's scale: nothing carried, every result
+            equal to a fresh card engine's
   parity    lubm_like and dblp_like at scale 0.3: the card's result sets
             equal the CPU engine's, exactly, for rdf_h and for the bloom
             configuration
+  examples  python -m repro_torch.examples.quickstart and serve_queries
+            --governed --chaos --delta --snapshot PATH, in this process on
+            the card at their default scales; any exception fails
+  seconds   each phase's wall seconds
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the repository beside it, the script exits non-zero and prints no result.
@@ -556,6 +595,7 @@ def kernel_phase(ds, rng) -> list:
                None, 8 * c + 4 * valid + 8 * j + 4 * c * j, 2 * j * searches,
                (ops.interval_count(ids, lo, hi, cands=cands, lens=lens),),
                (ref.interval_count_gather_ref(ids, cands, lo, hi, lens),),
+               counter="interval_count_entry",
                yardsticks={"full_rows_ms": full_rows})
     emit({"phase": "interval_count_full_rows",
           "ms": out[-1]["full_rows_ms"], "call_ms": cuda_ms(full_rows),
@@ -1178,7 +1218,7 @@ def serve_round(srv, queries, want, where: str) -> dict:
         res = f.result()                 # a failed future raises here
         check_rows(res, srv.dataset.num_nodes, q.num_nodes)
         if result_digest(res) != d:
-            fail(f"serve {where}: a result differs from the main phase's")
+            fail(f"serve {where}: a result differs from its reference")
         out["result_cache_hits"] += bool(res.stats.result_cache_hit)
         out["warm"] += bool(res.stats.cache_hit)
         out["degraded"] += bool(res.stats.degraded_steps)
@@ -1499,6 +1539,543 @@ def conn_phase(ds, conn) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# distributed: core.distributed over NCCL in a world of one
+# ---------------------------------------------------------------------- #
+DIST_CAP = 1 << 16          # gather_candidates' per-shard candidate cap
+DIST_CHUNK = 8192           # rows per chunk of the plain reference
+
+
+def distributed_phase(ds, query, rows: list) -> dict:
+    """shard_check and gather_candidates (repro_torch.core.distributed)
+    over an NCCL process group of one rank, on the NI entry with the
+    largest cap at full size and the keyword intervals of one main-phase
+    template; the mask is held to ref.interval_count_ref over the same
+    rows, computed in chunks on the card, and shard_check must have
+    launched the interval_count entry of interval_count.cu."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import gather_candidates, shard_check
+    from repro_torch.kernels import ops, ref
+
+    key = max(ds.ni.entries, key=lambda k: (ds.ni.entries[k].cap, k))
+    e = ds.ni.entries[key]
+    iv = query.intervals(ds.idmap)
+    lo = np.ascontiguousarray(iv[:, 0], np.int32)
+    hi = np.ascontiguousarray(iv[:, 1], np.int32)
+    need = np.zeros(len(lo), np.int32)
+    need[0] = 1                         # the first keyword within one hop
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            mask = shard_check(e.ids, lo, hi, need, e.overflow,
+                               device=DEVICE)
+            t_check = time.perf_counter() - t0
+            entry = dict(ops.cuda_kernels()["interval_count"].entry_launches)
+            t0 = time.perf_counter()
+            cands = gather_candidates(mask, DIST_CAP, device=DEVICE)
+            t_gather = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    if entry["interval_count"] == 0:
+        fail("distributed: shard_check launched no interval_count entry")
+    # the plain version over the same rows, in chunks on the card
+    lo_t, hi_t, need_t = (torch.as_tensor(x, device=DEVICE)
+                          for x in (lo, hi, need))
+    want = np.empty(len(mask), bool)
+    for s in range(0, len(mask), DIST_CHUNK):
+        chunk = torch.as_tensor(e.ids[s:s + DIST_CHUNK], device=DEVICE)
+        cnt = ref.interval_count_ref(chunk, lo_t, hi_t)
+        ok = (cnt >= need_t[None, :]).all(1).cpu().numpy()
+        want[s:s + DIST_CHUNK] = ok | e.overflow[s:s + DIST_CHUNK]
+    if mask.shape != want.shape or not np.array_equal(mask, want):
+        fail(f"distributed: {int((mask != want).sum())} of {len(want)} "
+             "rows of the mask differ from the plain version")
+    if not np.array_equal(cands, np.flatnonzero(want)[:DIST_CAP]):
+        fail("distributed: gather_candidates differs from the mask's "
+             "first candidates")
+    # the interval_count entry at this path's shape: every row of the
+    # entry, whole rows searched (shard_check passes no stored lengths);
+    # the bound counts the stored ids, each read once
+    ids = torch.as_tensor(e.ids, device=DEVICE)
+    stored = int(np.minimum(e.count, e.cap).sum())
+    n, j = ids.shape[0], len(lo)
+    record_row(rows, "interval_count_shard", "interval_count.cu",
+               "src/repro/kernels/interval_count.py:58",
+               lambda: ops.interval_count(ids, lo_t, hi_t),
+               lambda: ref.interval_count_ref(ids, lo_t, hi_t), None,
+               4 * stored + 8 * j + 4 * n * j,
+               2 * j * n * math.ceil(math.log2(e.cap + 1)),
+               (ops.interval_count(ids, lo_t, hi_t),),
+               (ref.interval_count_ref(ids, lo_t, hi_t),),
+               counter="interval_count_entry")
+    rows[-1]["shape"] = {"rows": n, "cap": int(e.cap), "intervals": j,
+                         "stored_ids": stored}
+    del ids
+    torch.cuda.empty_cache()
+    emit({"phase": "distributed", "backend": "nccl", "world_size": 1,
+          "entry": key, "rows": int(e.ids.shape[0]), "cap": int(e.cap),
+          "ids_gb": e.ids.nbytes / 2**30, "intervals": len(lo),
+          "passed": int(mask.sum()), "candidates": int(len(cands)),
+          "gather_cap": DIST_CAP, "entry_launches": entry,
+          "shard_check_s": t_check, "gather_candidates_s": t_gather,
+          "equal": True, "seconds": time.perf_counter() - t_phase})
+    return entry
+
+
+# ---------------------------------------------------------------------- #
+# delta: QueryServer.apply_delta with the device tensor cache migrated
+# ---------------------------------------------------------------------- #
+def engine_round(eng, queries) -> tuple:
+    """Every template cold through `eng`: its results and the round's
+    wall time (host clock, ending in a synchronize)."""
+    import torch
+    t0 = time.perf_counter()
+    results = [eng.execute(q) for q in queries]
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def carried_equal(eng, keys) -> None:
+    """Each device-cache entry of `eng` in `keys` against a fresh upload
+    of the same entry from eng's dataset (Engine.upload); fails on any
+    difference."""
+    import torch
+    for key in keys:
+        kept, fresh = eng._dev_cache[key], eng.upload(key)
+        kept = kept if isinstance(kept, tuple) else (kept,)
+        fresh = fresh if isinstance(fresh, tuple) else (fresh,)
+        if len(kept) != len(fresh) or not all(
+                a.shape == b.shape and a.dtype == b.dtype
+                and torch.equal(a, b) for a, b in zip(kept, fresh)):
+            fail(f"delta: the carried device tensor {key!r} differs from a "
+                 "fresh upload of the new dataset")
+        del kept, fresh
+
+
+def delta_step(srv, queries, inserts, deletes, where: str,
+               churn_threshold: float = 0.05) -> dict:
+    """srv.apply_delta, then one round of `queries` on the migrated server.
+    Every result is held to a fresh card engine built on srv.dataset with
+    an empty device cache: a complete result to that engine's own cold
+    run, a truncated one to that engine's execution of the server's plan
+    for the template (a result cut at max_rows keeps rows in its plan's
+    order, and a plan the delta kept may order joins by the old
+    statistics); every carried device-cache entry is held to a fresh
+    upload."""
+    import copy
+    import torch
+    from repro_torch.serve.plan_cache import canonicalize, remap_result
+
+    t0 = time.perf_counter()
+    info = srv.apply_delta(inserts, deletes, churn_threshold=churn_threshold)
+    t_delta = time.perf_counter() - t0
+    carried = list(srv.engine._dev_cache)
+    start = launch_counts()
+    t0 = time.perf_counter()
+    futures = srv.submit_many(queries)
+    srv.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - start[k] for k, v in launch_counts().items()}
+    got = []
+    for f, q in zip(futures, queries):
+        res = f.result()
+        check_rows(res, srv.dataset.num_nodes, q.num_nodes)
+        got.append(res)
+    reuploaded = [k for k in srv.engine._dev_cache if k not in carried]
+    t0 = time.perf_counter()
+    carried_equal(srv.engine, carried)
+    t_carried = time.perf_counter() - t0
+
+    fresh = srv.dataset.engine("rdf_h", device=DEVICE)
+    if fresh._dev_cache:
+        fail("delta: a fresh engine started with a device cache")
+    cold, fresh_wall = engine_round(fresh, queries)
+    complete = 0
+    for i, (q, res, ref_res) in enumerate(zip(queries, got, cold)):
+        if not res.stats.truncated:
+            complete += 1
+            if ref_res.stats.truncated or \
+                    result_digest(res) != result_digest(ref_res):
+                fail(f"delta {where}: template {i} differs from a fresh "
+                     "engine's cold run")
+            continue
+        _, order, fp = canonicalize(q)
+        pq = srv.plan_cache.peek(srv.dataset_id, fp)
+        if pq is None:
+            fail(f"delta {where}: template {i} has no plan after its round")
+        same = remap_result(fresh.execute_prepared(copy.deepcopy(pq)), order)
+        if result_digest(same) != result_digest(res):
+            fail(f"delta {where}: template {i} differs from a fresh "
+                 "engine's run of the server's plan")
+    del fresh, cold
+    torch.cuda.empty_cache()
+    return {"where": where, "info": info, "delta_s": t_delta,
+            "carried": [str(k) for k in carried],
+            "reuploaded": [str(k) for k in reuploaded],
+            "carried_check_s": t_carried,
+            "migrated_round_s": wall, "fresh_cold_round_s": fresh_wall,
+            "complete_templates": complete, "launches": launches}
+
+
+def delta_phase(ds, served) -> dict:
+    """Live deltas on the card at full size: a QueryServer warmed with one
+    round of the main phase's templates absorbs the delta that
+    examples/serve_queries.py builds (about num_edges / 200 deletes and
+    the recombined inserts, incremental at this size), then a delete of
+    a triple the graph does not hold (incremental, no row changes: every
+    NI tensor and the bloom signatures stay on the card); each followed by
+    a round held to a fresh card engine (delta_step)."""
+    import torch
+    from repro_torch.examples.serve_queries import delta_triples
+    from repro_torch.serve import QueryServer
+
+    queries = served["queries"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    reset_launches()
+    srv = QueryServer(ds, "rdf_h", calibrate=False, device=DEVICE)
+    warm = serve_round(srv, queries, served["digests"], "delta warm-up")
+    inserts, deletes = delta_triples(ds.graph, 0)
+    steps = [delta_step(srv, queries, inserts, deletes, "incremental")]
+    if steps[0]["info"]["mode"] != "incremental":
+        fail(f"delta: the full-size delta took the {steps[0]['info']} path")
+    # every NI entry resident, so the no-op delta has each one to carry
+    for key in [(s, d) for s in (1, -1) for d in range(1, ds.ni.d_max + 1)]:
+        if key not in srv.engine._dev_cache:
+            srv.engine._dev_cache[key] = srv.engine.upload(key)
+    resident = {str(k) for k in srv.engine._dev_cache if k != "edges"}
+    steps.append(delta_step(srv, queries, [],
+                            [("no/such", "no/such", "no/such")], "no-op"))
+    noop = steps[1]
+    if noop["info"]["mode"] != "incremental" or \
+            set(noop["carried"]) != resident:
+        fail(f"delta: the no-op delta carried {noop['carried']}, not "
+             f"{sorted(resident)}")
+    launches = read_launches("delta", MAIN_KERNELS)
+    del srv
+    torch.cuda.empty_cache()
+    out = {"phase": "delta", "dataset": "lubm_like", "triples":
+           ds.num_edges, "inserts": len(inserts), "deletes": len(deletes),
+           "warm_up_round_s": warm["wall_s"], "steps": steps,
+           "launches": launches,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+           / 2**30, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# governed: budgets, admission, the ladder and the breaker on the card
+# ---------------------------------------------------------------------- #
+# force_simple_impls (nested joins, cross-product connection edges) is
+# quadratic; at lubm_like(scale=1) the rung answers every template within
+# seconds (the slowest, 4 and 7, took 91 and 10 s on a CPU)
+GOV_SCALE = 1.0
+GOV_TEMPLATES = range(10)           # 10 and 11 are truncated at this scale
+GOV_FAULT = ("join_expand", (1, 5, 6))      # point, templates
+GOV_BREAKER = ("cache_lookup", 8)           # point, template
+GOV_ADMIT = (4, range(8))           # max_pending, templates of one batch
+
+
+def gov_outcome(f, truth, cap: int) -> tuple:
+    """An exact result (equal to the ungoverned engine's), a result of
+    the truncate rung (at most `cap` rows, each a row of the exact
+    result), or the future's typed error; fails on anything else."""
+    from repro_torch.serve import ServingError
+    try:
+        res = f.result()
+    except ServingError as e:
+        cause = e.__cause__
+        return ("error", type(e).__name__,
+                None if cause is None else type(cause).__name__)
+    if res.stats.truncated:
+        if "truncate" not in res.stats.degraded_steps or res.count > cap \
+                or not res.result_set() <= truth.result_set():
+            fail(f"governed: a truncated result ({res.count} rows, steps "
+                 f"{res.stats.degraded_steps}) is not the truncate rung's")
+        return ("truncated", res.count, tuple(res.stats.degraded_steps))
+    if res.result_set() != truth.result_set():
+        fail("governed: a result differs from the ungoverned engine's")
+    return ("ok", res.count, tuple(res.stats.degraded_steps))
+
+
+def gov_view(srv) -> dict:
+    """The governor's counters that no clock moves in these scenarios."""
+    g = srv.telemetry()["governor"]
+    out = {k: g[k] for k in ("shed_submit", "shed_flush", "budget_exceeded",
+                             "degraded_queries", "degraded_by_rung",
+                             "exhausted", "transient_retries",
+                             "transient_recoveries", "ladder_entries")}
+    out["breaker"] = {k: g["breaker"][k] for k in
+                      ("trips", "denials", "probes", "recoveries", "open")}
+    rm = g["rung_memory"]
+    out["rung_memory"] = None if rm is None else {
+        k: rm[k] for k in ("hits", "jumps", "probes", "probe_recoveries",
+                           "probe_failures", "chronic")}
+    return out
+
+
+def forcing_cfg(point: str, device: str):
+    """The chaos suite's engine config: every join a staged sort-merge
+    join (through the expand and probe seams), every connection edge a
+    reach-join."""
+    from repro_torch.core import EngineConfig, Thresholds
+    return EngineConfig(check_policy="selective", d_check=2,
+                        thresholds=Thresholds(nested_join_max=1),
+                        join_impl="sorted", fuse_joins=False,
+                        connection_impl="reach", device=device)
+
+
+def fault_scenario(ds, queries, idx, device: str) -> dict:
+    """A persistent `raise` at GOV_FAULT's point on every call, after a
+    warm pass: each template walks the ladder past the first retry."""
+    from repro_torch.serve import GovernorConfig, QueryServer
+    from repro_torch.testing import Fault, FaultInjector
+    point, _ = GOV_FAULT
+    srv = QueryServer(ds, cfg=forcing_cfg(point, device), calibrate=False,
+                      governor=GovernorConfig(retry_backoff_s=0.001))
+    sub = [queries[i] for i in idx]
+    for f in srv.submit_many(sub, wait=True):
+        f.result()
+    with FaultInjector(Fault(point, "raise", every=1)) as fi:
+        futs = srv.submit_many(sub, wait=True)
+        results = [f.result() for f in futs]
+    return {"results": results, "calls": dict(fi.calls),
+            "fired": len(fi.fired), "governor": gov_view(srv)}
+
+
+def breaker_scenario(ds, query, device: str) -> dict:
+    """A template that fails at every rung (`raise` at GOV_BREAKER's
+    point on every call) until the breaker quarantines it; after the
+    fault clears and the cooldown passes, one probe closes it again."""
+    from repro_torch.serve import GovernorConfig, QueryServer
+    from repro_torch.testing import Fault, FaultInjector
+    from repro_torch.serve import ServingError
+    point, _ = GOV_BREAKER
+    srv = QueryServer(ds, cfg=forcing_cfg("kernel_dispatch", device),
+                      calibrate=False,
+                      governor=GovernorConfig(breaker_threshold=2,
+                                              breaker_cooldown_s=0.2,
+                                              retry_backoff_s=0.001))
+    want = srv.query(query).result_set()
+    seen = []
+    with FaultInjector(Fault(point, "raise", every=1)) as fi:
+        for _ in range(3):
+            f = srv.submit(query)
+            srv.flush()
+            try:
+                f.result()
+                seen.append("ok")
+            except ServingError as e:
+                seen.append(type(e).__name__)
+        state = srv.governor.breaker.state(f.fingerprint)
+    time.sleep(0.25)
+    res = srv.query(query)
+    if res.result_set() != want:
+        fail("governed: the breaker's recovery probe answered inexactly")
+    br = srv.governor.breaker.snapshot()
+    return {"outcomes": seen, "state_under_fault": state,
+            "state_after": srv.governor.breaker.state(f.fingerprint),
+            "calls": dict(fi.calls),
+            "breaker": {k: br[k] for k in ("trips", "denials", "probes",
+                                           "recoveries")},
+            "governor": gov_view(srv)}
+
+
+def governed_phase() -> tuple:
+    """Governed serving on the card at lubm_like(scale=GOV_SCALE): a
+    deadline below the connection templates' primary time, admission
+    control that sheds part of a batch, a persistent fault that drives
+    the ladder past the first retry and a breaker that quarantines a
+    template that fails at every rung.  Every future is exact (to an
+    ungoverned card engine), the truncate rung's (within its row cap) or
+    its own typed error; the fault's and the breaker's counters equal
+    the CPU port's run of the same scenario.  Returns the dataset and
+    templates for the rebuild delta."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Dataset
+    from repro_torch.data import lubm_like, random_query
+    from repro_torch.serve import (GovernorConfig, QueryServer,
+                                   RejectedError)
+
+    t_phase = time.perf_counter()
+    ds = Dataset.build(lubm_like(scale=GOV_SCALE, seed=1))
+    queries = [random_query(ds.graph, size=6, seed=100 + i,
+                            n_connection=1 if i >= N_QUERIES - 4 else 0)
+               for i in range(N_QUERIES)]
+    plain = ds.engine("rdf_h", device=DEVICE)
+    truth, primary_s = {}, {}
+    for i in GOV_TEMPLATES:
+        t0 = time.perf_counter()
+        truth[i] = plain.execute(queries[i])
+        torch.cuda.synchronize()
+        primary_s[i] = time.perf_counter() - t0
+        if truth[i].stats.truncated:
+            fail(f"governed: template {i} is truncated at scale {GOV_SCALE}")
+    del plain
+    reset_launches()
+    cap = GovernorConfig().degraded_row_cap
+    out = {"phase": "governed", "dataset": "lubm_like", "scale": GOV_SCALE,
+           "triples": ds.num_edges,
+           "why_reduced": "the force_simple_impls rung runs nested joins "
+                          "and cross-product connection edges, quadratic "
+                          "at full size",
+           "primary_s": primary_s}
+
+    # deadline: below the primary time of the connection templates
+    conn = [i for i in GOV_TEMPLATES if queries[i].connections]
+    deadline = 0.5 * min(primary_s[i] for i in conn)
+    srv = QueryServer(ds, "rdf_h", calibrate=False, device=DEVICE,
+                      governor=GovernorConfig(deadline_s=deadline,
+                                              retry_backoff_s=0.001))
+    idx = conn + [i for i in GOV_TEMPLATES if i not in conn][:2]
+    t0 = time.perf_counter()
+    futs = srv.submit_many([queries[i] for i in idx], wait=True)
+    outs = [gov_outcome(f, truth[i], cap) for f, i in zip(futs, idx)]
+    gv = gov_view(srv)
+    if not gv["budget_exceeded"]:
+        fail(f"governed: a {deadline:.3f} s deadline never fired")
+    out["deadline"] = {"deadline_s": deadline, "templates": idx,
+                       "outcomes": outs, "governor": gv,
+                       "seconds": time.perf_counter() - t0}
+
+    # admission: a batch larger than the pending bound
+    bound, batch = GOV_ADMIT
+    srv = QueryServer(ds, "rdf_h", calibrate=False, device=DEVICE,
+                      governor=GovernorConfig(max_pending=bound))
+    futs = srv.submit_many([queries[i] for i in batch])
+    shed = [f for f in futs if f.done()]
+    srv.flush()
+    outs = []
+    for f, i in zip(futs, batch):
+        if f in shed:
+            try:
+                f.result()
+                fail("governed: a shed future was answered")
+            except RejectedError:
+                outs.append(("error", "RejectedError", None))
+        else:
+            outs.append(gov_outcome(f, truth[i], cap))
+    if len(shed) != len(batch) - bound:
+        fail(f"governed: {len(shed)} of {len(batch)} shed at max_pending "
+             f"{bound}")
+    out["admission"] = {"max_pending": bound, "batch": len(batch),
+                        "outcomes": outs, "governor": gov_view(srv)}
+    del srv
+
+    # the time-independent scenarios, on the card and on the CPU
+    point, fidx = GOV_FAULT
+    card = fault_scenario(ds, queries, fidx, DEVICE)
+    cpu = fault_scenario(ds, queries, fidx, "cpu")
+    for i, r, c in zip(fidx, card["results"], cpu["results"]):
+        if r.result_set() != truth[i].result_set() or \
+                c.result_set() != r.result_set():
+            fail(f"governed: the {point} fault's template {i} is inexact")
+        if not r.stats.degraded_steps:
+            fail(f"governed: the {point} fault's template {i} was not "
+                 "degraded")
+    steps = [tuple(r.stats.degraded_steps) for r in card["results"]]
+    card_view = {k: card[k] for k in ("calls", "fired", "governor")}
+    cpu_view = {k: cpu[k] for k in ("calls", "fired", "governor")}
+    if card_view != cpu_view or steps != [tuple(r.stats.degraded_steps)
+                                          for r in cpu["results"]]:
+        fail(f"governed: the {point} fault's counters differ from the "
+             f"CPU port's: {card_view} / {cpu_view}")
+    out["fault"] = {"point": point, "templates": list(fidx),
+                    "degraded_steps": steps, **card_view}
+
+    bpoint, bi = GOV_BREAKER
+    card = breaker_scenario(ds, queries[bi], DEVICE)
+    cpu = breaker_scenario(ds, queries[bi], "cpu")
+    if card["outcomes"] != ["DegradationExhausted"] * 2 + \
+            ["QuarantinedError"] or card["state_under_fault"] != "open" \
+            or card["state_after"] != "closed":
+        fail(f"governed: the breaker went {card}")
+    if card != cpu:
+        fail(f"governed: the breaker's counters differ from the CPU "
+             f"port's: {card} / {cpu}")
+    out["breaker"] = {"point": bpoint, "template": bi, **card}
+    out["launches"] = read_launches("governed", GOV_KERNELS)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return ds, queries
+
+
+GOV_KERNELS = ("merge_probe", "expand_segments", "interval_count")
+
+
+def rebuild_delta(ds, queries) -> None:
+    """The rebuild path of apply_delta (churn above churn_threshold) at
+    the governed phase's scale: a full rebuild carries no device tensor,
+    and every result equals a fresh card engine's (delta_step)."""
+    import torch
+    from repro_torch.examples.serve_queries import delta_triples
+    from repro_torch.serve import QueryServer
+
+    t_phase = time.perf_counter()
+    srv = QueryServer(ds, "rdf_h", calibrate=False, device=DEVICE)
+    for f in srv.submit_many(queries, wait=True):
+        f.result()
+    inserts, deletes = delta_triples(ds.graph, 0)
+    step = delta_step(srv, queries, inserts, deletes, "rebuild",
+                      churn_threshold=0.0)
+    if step["info"]["mode"] != "rebuild" or step["carried"]:
+        fail(f"delta rebuild: took {step['info']} and carried "
+             f"{step['carried']}")
+    del srv
+    torch.cuda.empty_cache()
+    emit({"phase": "delta_rebuild", "scale": GOV_SCALE,
+          "triples": ds.num_edges, "step": step,
+          "seconds": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------------- #
+# examples: the port's drivers on the card at their default scales
+# ---------------------------------------------------------------------- #
+EXAMPLE_KERNELS = ("merge_probe", "expand_segments", "interval_count")
+
+
+def examples_phase() -> dict:
+    """python -m repro_torch.examples.quickstart and serve_queries
+    --governed --chaos --delta --snapshot PATH, run in this process on the
+    card at their default scales; any exception fails the phase."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.examples import quickstart, serve_queries
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    out = {"phase": "examples"}
+    for name, fn in (("quickstart", lambda tmp: quickstart.main(
+                         ["--device", DEVICE])),
+                     ("serve_queries", lambda tmp: serve_queries.main(
+                         ["--device", DEVICE, "--governed", "--chaos",
+                          "--delta", "--snapshot",
+                          os.path.join(tmp, "serve.snap")]))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(buf):
+            summary = fn(tmp)
+        out[name] = {"summary": summary, "lines": len(
+            buf.getvalue().splitlines()), "seconds": time.perf_counter() - t0}
+    out["launches"] = read_launches("examples", EXAMPLE_KERNELS)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out["launches"]
+
+
 def parity_phase(scale: float) -> None:
     from repro_torch.core import Dataset, Engine, EngineConfig
     from repro_torch.data import dblp_like, lubm_like, random_query
@@ -1550,6 +2127,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available: this smoke test needs an NVIDIA GPU")
 
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1572,20 +2150,34 @@ def main() -> None:
           "ni_caps": {str(k): e.cap for k, e in ds.ni.entries.items()},
           "seconds": time.perf_counter() - t0})
 
-    rows = kernel_phase(ds, np.random.default_rng(0))
-    main_launches, main_runs, conn, common, served = main_phase(ds,
-                                                                N_QUERIES)
-    rows += main_shape_rows(common)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    rows = timed("kernels", kernel_phase, ds, np.random.default_rng(0))
+    main_launches, main_runs, conn, common, served = timed(
+        "main", main_phase, ds, N_QUERIES)
+    rows += timed("main_shape_rows", main_shape_rows, common)
     del common
-    serve_phase(ds, served)
+    timed("serve", serve_phase, ds, served)
+    timed("delta", delta_phase, ds, served)
+    query0 = served["queries"][0]
     del served
-    bloom_launches, bloom_runs = bloom_phase(ds)
-    conn_launches = conn_phase(ds, conn)
+    bloom_launches, bloom_runs = timed("bloom", bloom_phase, ds)
+    conn_launches = timed("conn", conn_phase, ds, conn)
+    dist_entry = timed("distributed", distributed_phase, ds, query0, rows)
     # each kernel's launches come from the phase that runs its path, and
-    # per cold and per warm execution where the path has both
+    # per cold and per warm execution where the path has both; the
+    # interval_count entry of interval_count.cu (the engine's check runs
+    # its interval_check entry) from the distributed path
     launches = {**{k: main_launches[k] for k in MAIN_KERNELS},
                 **{k: bloom_launches[k] for k in BLOOM_KERNELS},
-                **{k: conn_launches[k] for k in CONN_KERNELS}}
+                **{k: conn_launches[k] for k in CONN_KERNELS},
+                "interval_count_entry": dist_entry["interval_count"]}
     per_run = {**{k: (main_runs, N_QUERIES) for k in MAIN_KERNELS},
                **{k: (bloom_runs, N_BLOOM) for k in BLOOM_KERNELS}}
     for row in rows:
@@ -1597,7 +2189,14 @@ def main() -> None:
                 row[f"launches_per_{run}_execution"] = \
                     runs[run][counter] / n_exec
     del ds, conn
-    parity_phase(args.parity_scale)
+    torch.cuda.empty_cache()
+    gov_ds, gov_queries = timed("governed", governed_phase)
+    timed("delta_rebuild", rebuild_delta, gov_ds, gov_queries)
+    del gov_ds, gov_queries
+    timed("parity", parity_phase, args.parity_scale)
+    timed("examples", examples_phase)
+    emit({"phase": "seconds", "seconds": seconds,
+          "total": time.perf_counter() - t_start})
 
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -1,7 +1,4 @@
-"""RDF-ℏ core in PyTorch: the engine of ``repro.core``, module for module.
-
-Not ported yet (ROADMAP Queue 1): ``distributed``.
-"""
+"""RDF-ℏ core in PyTorch: the engine of ``repro.core``, module for module."""
 from .graph import RDFGraph, IDMap, RESOURCE, LITERAL, REL, ATTR, csr_patch
 from .ni_index import NIIndex, NIEntry, build_ni_index, \
     vertex_cover_2approx, khop_rows, patch_entry
@@ -32,3 +29,4 @@ from .planner import Thresholds, CostModel, PlanDecision, decide, \
     connection_edge_cost, choose_connection_impl
 from .engine import Engine, EngineConfig, MatchResult, PreparedQuery, \
     QueryStats, make_engine
+from .distributed import shard_check, gather_candidates

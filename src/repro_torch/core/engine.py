@@ -50,7 +50,7 @@ from .ni_index import NIIndex
 from .dataset import Dataset, ENGINE_VARIANTS, interval_footprint_hit
 from .query import QueryTemplate, ConnectionEdge
 from .signature import (build_requirements, check_interval_candidates,
-                        bloom_prefilter, build_bloom)
+                        bloom_prefilter, build_bloom, upload_entry)
 from .decompose import decompose, join_order, DTree
 from .matching import (Table, CapacityOverflow, dtree_candidates,
                        cross_join, single_node_table, filter_rows,
@@ -653,19 +653,29 @@ class Engine:
         return MatchResult(cols=final.cols, rows=rows, stats=qs)
 
     # -------------------------------------------------------------- #
+    def upload(self, key):
+        """A fresh upload of device-cache entry ``key`` from this engine's
+        dataset: "edges" (the graph's edge tensors), "bloom" (the 1-hop
+        bloom signatures, built on the host) or (sign, d) (the check's NI
+        tensors, ``signature.upload_entry``)."""
+        if key == "edges":
+            return graph_edges(self.graph, self.device)
+        if key == "bloom":
+            return bits32(build_bloom(self.ni.entries[1])).to(self.device)
+        return upload_entry(self.ni, *key, self.device)
+
     def _edges(self) -> tuple:
         """The graph's (src, dst, pred) tensors on the engine's device,
         uploaded once per engine."""
         if "edges" not in self._dev_cache:
-            self._dev_cache["edges"] = graph_edges(self.graph, self.device)
+            self._dev_cache["edges"] = self.upload("edges")
         return self._dev_cache["edges"]
 
     def _bloom_sigs(self) -> torch.Tensor:
         """The 1-hop bloom signatures on the engine's device: built on the
         host at first use and uploaded once per engine."""
         if "bloom" not in self._dev_cache:
-            self._dev_cache["bloom"] = bits32(
-                build_bloom(self.ni.entries[1])).to(self.device)
+            self._dev_cache["bloom"] = self.upload("bloom")
         return self._dev_cache["bloom"]
 
     def _probe_impl(self) -> str:

@@ -161,7 +161,8 @@ def patch_entry(entry: "NIEntry", rows: np.ndarray, lists, m: int) -> "NIEntry":
     Capacity is kept fixed — a list longer than the entry's cap truncates
     with overflow=True, which every check treats as an automatic pass
     (sound: prune only on certain information).  Per-row bin summaries are
-    recomputed exactly as `_pack` does.
+    recomputed exactly as `_pack` does, for blocks of rewritten rows at a
+    time (the reference loops over every bin of every row).
     """
     ids = entry.ids.copy()
     count = entry.count.copy()
@@ -169,8 +170,7 @@ def patch_entry(entry: "NIEntry", rows: np.ndarray, lists, m: int) -> "NIEntry":
     bl = entry.bin_lo.copy()
     bh = entry.bin_hi.copy()
     cap = entry.cap
-    nbins = bl.shape[1]
-    i32max = np.iinfo(np.int32).max
+    written = []
     for r, arr in zip(rows, lists):
         r = int(r)
         c = int(arr.shape[0])
@@ -179,18 +179,31 @@ def patch_entry(entry: "NIEntry", rows: np.ndarray, lists, m: int) -> "NIEntry":
         k = min(c, cap)
         ids[r, :k] = arr[:k]
         ids[r, k:] = INVALID
-        row = ids[r]
-        for b in range(nbins):
-            blk = row[b * m:(b + 1) * m]
-            valid = blk >= 0
-            if valid.any():
-                bl[r, b] = blk[valid].min()
-                bh[r, b] = blk[valid].max()
-            else:
-                bl[r, b] = i32max
-                bh[r, b] = INVALID
+        written.append(r)
+    _bin_summaries(ids, np.unique(np.asarray(written, np.int64)), m, bl, bh)
     return NIEntry(ids=ids, count=count, overflow=overflow,
                    bin_lo=bl, bin_hi=bh)
+
+
+def _bin_summaries(ids: np.ndarray, rows: np.ndarray, m: int,
+                   bl: np.ndarray, bh: np.ndarray) -> None:
+    """bl/bh[rows] = min/max of the valid ids in each bin of m columns of
+    ids[rows] (int32 max / INVALID for a bin with none), in place, 1,024
+    rows at a time."""
+    block = 1024
+    nbins = bl.shape[1]
+    pad = nbins * m - ids.shape[1]
+    i32max = np.iinfo(np.int32).max
+    for s in range(0, rows.size, block):
+        rs = rows[s:s + block]
+        blk = ids[rs]
+        if pad:
+            blk = np.concatenate(
+                [blk, np.full((rs.size, pad), INVALID, blk.dtype)], 1)
+        blk = blk.reshape(rs.size, nbins, m)
+        valid = blk >= 0
+        bl[rs] = np.where(valid, blk, i32max).min(axis=2)
+        bh[rs] = np.where(valid, blk, INVALID).max(axis=2)
 
 
 def _pack(lists, cap: int, m: int) -> NIEntry:

@@ -110,6 +110,17 @@ def build_requirements(query: QueryTemplate, comp: list[int], q: int,
     return NodeReqs(fwd=one_direction(True), bwd=one_direction(False))
 
 
+def upload_entry(ni: NIIndex, sign: int, d: int, device) -> tuple:
+    """(ids, lens, overflow) of NI entry sign*d on ``device``: the ids,
+    each row's stored length min(count, cap) and the overflow bits — the
+    tensors the check keeps per (sign, d)."""
+    e = ni.entries[sign * d]
+    lens = np.minimum(e.count, e.cap).astype(np.int32)
+    return (torch.as_tensor(e.ids, device=device),
+            torch.as_tensor(lens, device=device),
+            torch.as_tensor(e.overflow, device=device))
+
+
 def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
                               lo: int, hi: int, d_check: int,
                               *, impl: str = "auto",
@@ -138,11 +149,7 @@ def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
     def dev_entry(sign, d):
         key = (sign, d)
         if key not in cache:
-            e = ni.entries[sign * d]
-            lens = np.minimum(e.count, e.cap).astype(np.int32)
-            cache[key] = (torch.as_tensor(e.ids, device=device),
-                          torch.as_tensor(lens, device=device),
-                          torch.as_tensor(e.overflow, device=device))
+            cache[key] = upload_entry(ni, sign, d, device)
         return cache[key]
 
     segments = []

@@ -1,10 +1,12 @@
 """Engine configurations beyond the default, port against reference.
 
-A covering set of join_impl x fuse_joins x connection_impl x plan_mode
-(ROADMAP Queue 1 item 7) on one small dataset: the port (on the CPU) must
+The whole grid of join_impl x fuse_joins x connection_impl x plan_mode
+(48 configurations) on one small dataset: the port (on the CPU) must
 return the reference's result sets, strategies and telemetry, cold and
 warm.
 """
+import itertools
+
 import pytest
 
 import repro.core as J
@@ -12,14 +14,10 @@ import repro.data as JD
 import repro_torch.core as T
 import repro_torch.data as TD
 
-CONFIGS = [  # join_impl, fuse_joins, connection_impl, plan_mode
-    ("sorted", True, "reach", "cost"),
-    ("sorted", False, "cross", "greedy"),
-    ("radix", True, "cross", "cost"),
-    ("nested", True, "reach", "greedy"),
-    ("auto", False, "auto", "greedy"),
-    ("auto", True, "cross", "cost"),
-]
+# join_impl x fuse_joins x connection_impl x plan_mode: the whole grid
+CONFIGS = list(itertools.product(("auto", "sorted", "radix", "nested"),
+                                 (True, False), ("auto", "reach", "cross"),
+                                 ("cost", "greedy")))
 
 
 @pytest.fixture(scope="module")

@@ -544,3 +544,107 @@ def test_cuda_connectivity_vectorized_launches_ragged_entry(dev):
         assert timings["fallback_pairs"] > 0
         assert set(timings) == {"gather", "upload", "kernel", "fallback",
                                 "fallback_pairs"}
+
+
+def test_cuda_shard_check_matches_cpu_with_a_group_of_one(dev, tmp_path):
+    """core.distributed over NCCL in a world of one: the mask and the
+    gathered candidates equal the CPU run's (no group), and the card's
+    shard_check launches the interval_count entry."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import gather_candidates, shard_check
+    dt = T.Dataset.build(TD.DATASETS["lubm"](scale=0.3, seed=1))
+    e = dt.ni.entries[-1]
+    n = dt.graph.num_nodes
+    lo = np.asarray([0, n // 3, n // 2], np.int32)
+    hi = np.asarray([n // 4, n // 2, n], np.int32)
+    need = np.asarray([1, 0, 1], np.int32)
+    want = shard_check(e.ids, lo, hi, need, e.overflow, device="cpu")
+    want_c = gather_candidates(want, 300, device="cpu")
+    kernel = ops.cuda_kernels()["interval_count"]
+    kernel.reset()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        got = shard_check(e.ids, lo, hi, need, e.overflow)
+        got_c = gather_candidates(got, 300)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_c, want_c)
+    assert kernel.entry_launches["interval_count"] == 1
+    assert 0 < want.sum() < len(want)
+
+
+def test_cuda_delta_carries_only_fresh_device_tensors(dev):
+    """apply_delta on a small card server: after an incremental delta and
+    a no-op delta, every device tensor the server carried equals a fresh
+    upload from the new dataset, and every result equals a fresh card
+    engine's."""
+    from repro_torch.examples.serve_queries import delta_triples
+    from repro_torch.serve import QueryServer
+    dt = T.Dataset.build(TD.DATASETS["lubm"](scale=0.3, seed=1))
+    cpu = dt.engine("rdf_h", device="cpu")
+    # templates whose result is complete (a truncated one keeps rows in
+    # its plan's order)
+    pool = [q for q in (TD.random_query(dt.graph, size=6, seed=s,
+                                        n_connection=int(s >= 104))
+                        for s in range(100, 108))
+            if not cpu.execute(q).stats.truncated]
+    assert len(pool) >= 4
+    srv = QueryServer(dt, calibrate=False)
+    for f in srv.submit_many(pool, wait=True):
+        f.result()
+    ins, dels = delta_triples(dt.graph, 0)
+    carried_any = False
+    for inserts, deletes in ((ins, dels), ([], [("no/such",) * 3])):
+        info = srv.apply_delta(inserts, deletes)
+        assert info["mode"] == "incremental"
+        carried = list(srv.engine._dev_cache)
+        got = [f.result() for f in srv.submit_many(pool, wait=True)]
+        for key in carried:
+            kept, fresh = srv.engine._dev_cache[key], srv.engine.upload(key)
+            kept = kept if isinstance(kept, tuple) else (kept,)
+            fresh = fresh if isinstance(fresh, tuple) else (fresh,)
+            assert all(torch.equal(a, b) for a, b in zip(kept, fresh))
+        carried_any |= bool(carried)
+        eng = srv.dataset.engine("rdf_h")
+        for q, r in zip(pool, got):
+            w = eng.execute(q)
+            assert not r.stats.truncated and not w.stats.truncated
+            assert r.result_set() == w.result_set()
+    assert carried_any
+
+
+def test_cuda_governed_fault_counters_match_cpu(dev):
+    """A persistent join_expand fault on a governed server: each template
+    walks the ladder past the first retry to an exact answer on the card,
+    with the governor counters and fault calls of the CPU port's run."""
+    from repro_torch.serve import GovernorConfig, QueryServer
+    from repro_torch.testing import Fault, FaultInjector
+    dt = T.Dataset.build(TD.DATASETS["lubm"](scale=0.3, seed=1))
+    pool = [TD.random_query(dt.graph, size=6, seed=s) for s in (101, 105)]
+    want = [dt.engine("rdf_h", device="cpu").execute(q).result_set()
+            for q in pool]
+
+    def run(device):
+        cfg = T.EngineConfig(check_policy="selective", d_check=2,
+                             thresholds=T.Thresholds(nested_join_max=1),
+                             join_impl="sorted", fuse_joins=False,
+                             connection_impl="reach", device=device)
+        srv = QueryServer(dt, cfg=cfg, calibrate=False,
+                          governor=GovernorConfig(retry_backoff_s=0.001))
+        for f in srv.submit_many(pool, wait=True):
+            f.result()
+        with FaultInjector(Fault("join_expand", "raise", every=1)) as fi:
+            res = [f.result() for f in srv.submit_many(pool, wait=True)]
+        gov = srv.governor.snapshot()
+        return ([r.result_set() for r in res],
+                [tuple(r.stats.degraded_steps) for r in res],
+                dict(fi.calls), len(fi.fired),
+                {k: gov[k] for k in ("degraded_queries", "degraded_by_rung",
+                                     "exhausted", "transient_retries",
+                                     "ladder_entries")})
+    card, cpu = run("cuda"), run("cpu")
+    assert card == cpu
+    assert card[0] == want
+    assert all("force_simple_impls" in s for s in card[1])

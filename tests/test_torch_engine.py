@@ -169,8 +169,32 @@ def test_apply_delta_matches_reference(seed):
     if nj.touched is not None:
         np.testing.assert_array_equal(nt.touched, nj.touched)
     for k, e in nj.ni.entries.items():
-        np.testing.assert_array_equal(nt.ni.entries[k].ids, e.ids)
-        np.testing.assert_array_equal(nt.ni.entries[k].overflow, e.overflow)
+        for field in ("ids", "overflow", "count", "bin_lo", "bin_hi"):
+            np.testing.assert_array_equal(getattr(nt.ni.entries[k], field),
+                                          getattr(e, field))
+
+
+@pytest.mark.parametrize("cap,m", [(8, 5), (16, 4), (24, 5), (40, 7)])
+def test_patch_entry_matches_reference(cap, m):
+    """The port's patch_entry computes its bin summaries a block of rows
+    at a time: the same ids, counts, overflow bits and bin bounds as the
+    reference's per-bin loop, with short, full and overflowing lists, an
+    emptied row and a row rewritten twice."""
+    from repro.core.ni_index import _pack as jpack
+    from repro.core.ni_index import patch_entry as jpatch
+    from repro_torch.core.ni_index import patch_entry as tpatch
+    rng = np.random.default_rng(cap * m)
+    base = jpack([np.unique(rng.integers(0, 500, rng.integers(0, cap + 4)))
+                  .astype(np.int32) for _ in range(60)], cap, m)
+    rows = np.concatenate([rng.choice(60, 25, replace=False), [7, 7]])
+    lists = [np.unique(rng.integers(0, 500, n)).astype(np.int32)
+             for n in rng.integers(0, 2 * cap, rows.size)]
+    lists[3] = np.empty(0, np.int32)
+    want = jpatch(base, rows, lists, m)
+    got = tpatch(base, rows, lists, m)
+    for field in ("ids", "overflow", "count", "bin_lo", "bin_hi"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field))
 
 
 def test_warm_run_never_replans_or_rechecks(monkeypatch):
