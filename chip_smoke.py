@@ -117,6 +117,35 @@ exits non-zero without its final line:
   examples  python -m repro_torch.examples.quickstart and serve_queries
             --governed --chaos --delta --snapshot PATH, in this process on
             the card at their default scales; any exception fails
+  lm        the LM scaffold's serving path (repro_torch.models; plain
+            PyTorch, no hand kernel: the phase fails if one launches),
+            weights from a torch.Generator seeded 0 on the card:
+            (a) qwen2-0.5b at full width and depth (bf16 activations,
+            fp32 master weights), 8 prompts of 2,048 tokens from
+            concrete_batch and 32 greedy decode steps; (b) one prompt of
+            32,768 tokens (PREFILL_32K's length) and 8 steps, its time to
+            first token; (c) the same weights in fp32, TF32 off, on the
+            card against the port on the CPU, 2 x 128 tokens and 2 steps
+            (on (a)'s line), the logits and every cache leaf within
+            1e-3·max(1, max|ref|);
+            (d) stablelm-1.6b, starcoder2-15b, minitron-8b,
+            granite-moe-1b-a400m (capacity_factor 16), paligemma-3b
+            (256 patches + 512 tokens), hymba-1.5b (2 x 2,400 tokens: the
+            ring wraps) and rwkv6-7b at full width, 2 blocks deep, 2 x 512
+            tokens and 4 steps, each with (c)'s check at 1 x 64; (e)
+            hubert-xlarge (an encoder: prefill only) likewise and
+            llama4-maverick-400b-a17b at reduced_config.  Decode is held
+            to a prefill of the tokens fed, after the first and the last
+            step (lm_decode_checks: fp32 under tests/test_models.py's
+            2e-2·max(max|ref|, 1); bf16 under fixed limits, the step 4e-2
+            and the bf16 prefill 5e-2 from an fp32 one, with both steps
+            run again in fp32 under the 2e-2 criterion); (a) also holds
+            nn_ops.matmul_f32's bf16 products with an fp32 result to the
+            widened product at its five shapes.  Prints per config the
+            parameter count, prefill tokens/s, decode ms per step and
+            tokens/s, the peak memory, the errors, the per-call cast's
+            share of a step and the device's busy share of a step
+            (torch.profiler)
   seconds   each phase's wall seconds
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
@@ -2108,6 +2137,468 @@ def parity_phase(scale: float) -> None:
               "seconds": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------- #
+# lm: the LM scaffold's serving path (repro_torch.models) on the card
+# ---------------------------------------------------------------------- #
+LM_MODEL = "qwen2-0.5b"                 # (a)-(c): full width and depth
+LM_BATCH, LM_PROMPT, LM_STEPS = 8, 2048, 32
+LM_LONG, LM_LONG_STEPS = 32768, 8       # (b): PREFILL_32K's length, batch 1
+LM_CPU_BATCH, LM_CPU_PROMPT = 2, 128    # (c)
+# (d): full width, depth cut to 2 blocks
+LM_DEPTH2 = ("stablelm-1.6b", "starcoder2-15b", "minitron-8b",
+             "granite-moe-1b-a400m", "paligemma-3b", "hymba-1.5b",
+             "rwkv6-7b")
+LM_D_BATCH, LM_D_PROMPT, LM_D_STEPS, LM_D_CPU_PROMPT = 2, 512, 4, 64
+# hymba's ring (2,048 + 128 meta slots) wraps behind 2 x 2,400 prompts
+LM_D_PROMPTS = {"hymba-1.5b": 2400}
+# the card's peaks (NVIDIA data sheet): dense bf16 on the tensor cores
+BF16_OPS_PER_S = 989e12
+# fixed limits of a bf16 config, each relative to max(1, max|logits|) of
+# the prefill it is held to (lm_decode_checks): a decode step against the
+# bf16 prefill, and the bf16 prefill against an fp32 prefill of the same
+# tokens
+LM_BF16_DECODE_LIMIT = 4e-2
+LM_BF16_FP32_LIMIT = 5e-2
+
+
+def lm_max_err(got, ref) -> tuple:
+    """(max|got - ref|, max|ref|) in fp32."""
+    g, r = got.float().cpu(), ref.float().cpu()
+    if g.shape != r.shape:
+        fail(f"lm: shape {tuple(g.shape)}, expected {tuple(r.shape)}")
+    if not r.numel():
+        return 0.0, 0.0
+    return float((g - r).abs().max()), float(r.abs().max())
+
+
+def lm_tree_cpu(tree):
+    return {k: lm_tree_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def lm_prompt_ops(cfg, b: int, s: int) -> float:
+    """Operations of a dense prefill of b x s tokens: the matrix products
+    of every weight outside the embedding, the attention's causal
+    rectangle (masked, not skipped: every KV chunk of 1,024), and the last
+    token's logits."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import count_params
+    nonembed = count_params(tf.model_defs(cfg)["blocks"])
+    skv = s if s <= 1024 else -(-s // 1024) * 1024
+    attn = 4 * b * cfg.num_heads * s * skv * cfg.hd * cfg.num_layers
+    return 2 * nonembed * b * s + attn + 2 * b * cfg.vocab_size * cfg.d_model
+
+
+def lm_cache_len(cfg, b: int, s: int, steps: int) -> int:
+    """decode_cache_len for s prompt tokens and `steps` decode steps; a
+    VLM's patch tokens take cache slots too (the cache of a full
+    attention holds prefix + s + steps positions, plus DECODE_PAD)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.models import api
+    return api.decode_cache_len(cfg, InputShape(
+        "d", cfg.num_prefix_tokens + s + steps, b, "decode"))
+
+
+def lm_serve(cfg, params, batch, steps: int, cache_len: int,
+             check: bool = True) -> dict:
+    """Prefill `batch`, then `steps` greedy decode steps, on the card.
+    With check, decode is held to prefill after the first and the last
+    step (lm_decode_checks).  Returns times, errors and the decode step's
+    split."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    prefill = api.make_prefill_fn(cfg, cache_len=cache_len)
+    decode = api.make_decode_fn(cfg)
+    b = next(iter(batch.values())).shape[0]
+    positions = b * (sum(v.shape[1] for k, v in batch.items()
+                         if k in ("tokens", "frames", "patches"))
+                     + cfg.num_meta_tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"lm {cfg.name}: prefill logits not finite")
+    out = {"prompt": [b, positions // b], "prefill_s": t_prefill,
+           "prefill_tokens_per_s": positions / t_prefill}
+    if not steps:
+        return out
+    fed, first = [], None
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        fed.append(tok)
+        logits, cache = decode(params, cache, tok)
+        if i == 0:
+            first = logits
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    # the first step alone (it meets each shape first); the rest together
+    step_s = (time.perf_counter() - t0) / max(steps - 1, 1)
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"lm {cfg.name}: decode logits not finite")
+    out.update({"decode_steps": steps, "first_step_ms": t_first * 1e3,
+                "decode_ms_per_step": step_s * 1e3,
+                "decode_tokens_per_s": b / step_s})
+    # one step's split: the per-call cast of the weights to cfg.dtype and
+    # the device's busy time under torch.profiler
+    cast_ms = cuda_ms(lambda: api.cast_params(cfg, params), iters=5,
+                      warmup=1)
+    dev_ms = profiled_ms(lambda: decode(params, cache, tok), 3)
+    out.update({"cast_ms": cast_ms,
+                "cast_share_of_step": cast_ms / (step_s * 1e3),
+                "step_device_ms": None if dev_ms is None else dev_ms / 3,
+                "step_device_busy_share": None if dev_ms is None
+                else dev_ms / 3 / (step_s * 1e3)})
+    if check:
+        out["decode_vs_prefill"] = lm_decode_checks(
+            cfg, params, batch, fed, {1: first, steps: logits}, cache_len)
+    return out
+
+
+def lm_decode_checks(cfg, params, batch, fed, got: dict,
+                     cache_len: int) -> dict:
+    """Decode held to prefill: the logits of step n (got: {n: logits})
+    against a prefill of the prompt and the n tokens fed so far.
+
+    In fp32 the criterion is the reference's, max|Δ| < 2e-2·max(max|ref|,
+    1) (tests/test_models.py, whose reduced configs compute in fp32).  A
+    bf16 config is held to fixed limits instead, each relative to
+    max(max|ref|, 1): each step to LM_BF16_DECODE_LIMIT from the bf16
+    prefill (the reference's criterion reported beside it) and that
+    prefill to LM_BF16_FP32_LIMIT from an fp32 prefill of the same tokens;
+    and its steps are run again in fp32, with the same weights and the same
+    fed tokens, each step of `got` held to the reference's criterion."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    toks = np.asarray(batch["tokens"])
+    fed_np = torch.stack(fed, 1).cpu().numpy()
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    prefill = api.make_prefill_fn(cfg, cache_len=cache_len)
+    prefill32 = api.make_prefill_fn(c32, cache_len=cache_len)
+    out, ref32 = {}, {}
+    for n, logits in got.items():
+        b_n = dict(batch, tokens=np.concatenate([toks, fed_np[:, :n]], 1))
+        ref, _ = prefill(params, b_n)
+        err, scale = lm_max_err(logits, ref)
+        crit = 2e-2 * max(scale, 1.0)
+        rec = {"max_abs_err": err, "ref_max_abs": scale,
+               "reference_criterion": crit,
+               "reference_criterion_held": err < crit}
+        limit = crit
+        if cfg.dtype != "float32":
+            limit = LM_BF16_DECODE_LIMIT * max(scale, 1.0)
+            ref32[n], _ = prefill32(params, b_n)
+            noise, scale32 = lm_max_err(ref, ref32[n])
+            noise_limit = LM_BF16_FP32_LIMIT * max(scale32, 1.0)
+            rec.update(limit=limit, bf16_vs_fp32_prefill_max_abs=noise,
+                       bf16_vs_fp32_prefill_limit=noise_limit)
+            if not noise < noise_limit:
+                fail(f"lm {cfg.name} bf16 prefill of step {n}'s tokens "
+                     f"against fp32: max|Δ| {noise} not under {noise_limit}")
+        if not err < limit:
+            fail(f"lm {cfg.name} decode step {n} against prefill: "
+                 f"max|Δ| {err} not under {limit}")
+        out[f"step_{n}"] = rec
+    if cfg.dtype != "float32":
+        _, cache = prefill32(params, batch)
+        decode32 = api.make_decode_fn(c32)
+        for i in range(max(got)):
+            logits32, cache = decode32(params, cache, fed[i])
+            if i + 1 not in got:
+                continue
+            err, scale = lm_max_err(logits32, ref32[i + 1])
+            crit = 2e-2 * max(scale, 1.0)
+            if not err < crit:
+                fail(f"lm {cfg.name} fp32 decode step {i + 1} against "
+                     f"prefill: max|Δ| {err} not under {crit}")
+            out[f"fp32_step_{i + 1}"] = {"max_abs_err": err,
+                                         "ref_max_abs": scale,
+                                         "reference_criterion": crit}
+    return out
+
+
+def lm_matmul_check(cfg, b: int, s: int, cache_len: int) -> dict:
+    """nn_ops.matmul_f32 on the card at the products of (a)'s prefill
+    (flash attention's QK and PV over a KV chunk of 1,024), decode step
+    (QK and PV over the cache) and logits (the transposed unembedding):
+    bf16 operands with an fp32 result (out_dtype), the only branch of the
+    LM path that runs on the card alone, against the product of the
+    operands widened to fp32 (exact for bf16) with TF32 off.  Within
+    1e-5·max(1, max|ref|), the distance of two fp32 summation orders; a
+    result rounded to bf16 is ~4e-3 off."""
+    import torch
+    from repro_torch.models import nn_ops
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    bh, g, hd = b * cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+        cfg.hd
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16)
+    shapes = {"flash_qk": ((bh, g * s, hd), (bh, hd, 1024)),
+              "flash_pv": ((bh, g * s, 1024), (bh, 1024, hd)),
+              "decode_qk": ((bh, g, hd), (bh, hd, cache_len)),
+              "decode_pv": ((bh, g, cache_len), (bh, cache_len, hd)),
+              "logits": ((b, cfg.d_model), (cfg.vocab_size, cfg.d_model))}
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for name, (sa, sb) in shapes.items():
+            x, w = randn(*sa), randn(*sb)
+            if name == "logits":        # x[:, -1] @ un.t(), un [V, d]
+                w = w.t()
+            got = nn_ops.matmul_f32(x, w)
+            if got.dtype != torch.float32:
+                fail(f"lm matmul_f32 {name}: result is {got.dtype}")
+            err, scale = lm_max_err(got, torch.matmul(x.float(), w.float()))
+            if not err <= 1e-5 * max(1.0, scale):
+                fail(f"lm matmul_f32 {name}: max|Δ| {err} over "
+                     f"1e-5·{scale}")
+            out[name] = {"a": list(x.shape), "b": list(w.shape),
+                         "max_abs_err": err, "ref_max_abs": scale}
+            del x, w, got
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    return out
+
+
+def lm_card_vs_cpu(cfg, params, b: int, s: int, steps: int = 2) -> dict:
+    """cfg in fp32 (dtype "float32"), TF32 off: prefill b x s and `steps`
+    decode steps on the card and on the CPU with the same weights; the
+    logits and every cache leaf agree within 1e-3·max(1, max|ref|)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.models import api, convert
+    from repro_torch.models.param import tree_leaves
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    batch = api.concrete_batch(cfg, InputShape("c", s, b, "prefill"), seed=7)
+    cl = lm_cache_len(cfg, b, s, steps)
+    prefill = api.make_prefill_fn(cfg, cache_len=cl)
+    decode = api.make_decode_fn(cfg)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    snaps = {}
+    t0 = time.perf_counter()
+    try:
+        for where, p in (("card", params), ("cpu", lm_tree_cpu(params))):
+            logits, cache = prefill(p, batch)
+            snap = [convert.cache_to_numpy({"logits": logits,
+                                            "cache": cache})]
+            for i in range(steps if cfg.decoder else 0):
+                tok = torch.full((b,), 11 + i, dtype=torch.int32,
+                                 device=logits.device)
+                logits, cache = decode(p, cache, tok)
+                snap.append(convert.cache_to_numpy({"logits": logits,
+                                                    "cache": cache}))
+            snaps[where] = snap
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    worst, n_leaves = {}, 0
+    for i, (card, cpu) in enumerate(zip(snaps["card"], snaps["cpu"])):
+        got = dict(tree_leaves(card))
+        for path, want in tree_leaves(cpu):
+            g = got[path]
+            if g.shape != want.shape:
+                fail(f"lm {cfg.name} card vs CPU {path}: shape")
+            if not want.size:
+                continue
+            n_leaves += 1
+            err = float(np.max(np.abs(g.astype(np.float64) - want)))
+            scale = max(1.0, float(np.max(np.abs(want))))
+            if not err <= 1e-3 * scale:
+                fail(f"lm {cfg.name} card vs CPU step {i} {path}: max|Δ| "
+                     f"{err} over 1e-3·{scale}")
+            key = "logits" if path == ("logits",) else "cache"
+            worst[key] = max(worst.get(key, 0.0), err / scale)
+    return {"prompt": [b, s], "steps": steps if cfg.decoder else 0,
+            "leaves_held": n_leaves, "max_rel_err": worst,
+            "seconds": time.perf_counter() - t0}
+
+
+def lm_op_times() -> dict:
+    """Seconds of single plain-PyTorch ops at the phase's shapes (host
+    clock around a synchronised call, after one warm call):
+    flash_attention of one qwen2-0.5b layer at 32,768 tokens (its causal
+    rectangle masked, not skipped: 3.85 TFLOP) and ssm_scan of one
+    hymba-1.5b layer over 2 x (128 meta + 2,400) tokens, the per-token
+    loop."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import nn_ops, ssm
+    from repro_torch.models.param import init_params
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16)
+
+    def seconds(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    q = ARCHS[LM_MODEL]
+    qkv = (randn(1, q.num_heads, LM_LONG, q.hd),
+           randn(1, q.num_kv_heads, LM_LONG, q.hd),
+           randn(1, q.num_kv_heads, LM_LONG, q.hd))
+    attn_s = seconds(lambda: nn_ops.flash_attention(*qkv, causal=True))
+    ops = 4 * q.num_heads * LM_LONG * LM_LONG * q.hd
+    del qkv
+    h = ARCHS["hymba-1.5b"]
+    p = {k: v.to(torch.bfloat16) for k, v in init_params(
+        ssm.ssm_defs(h), gen, device=DEVICE).items()}
+    s_len = h.num_meta_tokens + LM_D_PROMPTS["hymba-1.5b"]
+    x = randn(LM_D_BATCH, s_len, h.d_model)
+    h0 = torch.zeros((LM_D_BATCH, h.ssm_heads, h.d_model // h.ssm_heads,
+                      h.ssm_state), device=DEVICE)
+    ssm_s = seconds(lambda: ssm.ssm_scan(h, p, x, h0))
+    return {"phase": "lm", "case": "op_times",
+            "flash_attention_32k_layer_s": attn_s,
+            "flash_attention_32k_layer_bound_ms": ops / BF16_OPS_PER_S * 1e3,
+            "ssm_scan_layer_s": ssm_s, "ssm_scan_tokens": LM_D_BATCH * s_len,
+            "ssm_scan_us_per_token_step": ssm_s / s_len * 1e6}
+
+
+def lm_config_run(name: str, cfg, b: int, s: int, steps: int,
+                  cpu_b: int, cpu_s: int, bounds=None, **fields):
+    """One config: init on the card from seed 0 (the tree held to
+    model_defs), a short warm-up, lm_serve of b x s and `steps` steps,
+    and lm_card_vs_cpu at cpu_b x cpu_s; prints its line, with `fields`
+    and bounds(n_params, cache_len), and returns the weights."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import count_params, tree_leaves
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    if n_params != count_params(tf.model_defs(cfg)):
+        fail(f"lm {name}: the initialised tree does not match model_defs")
+    # a short prefill and steps first, so no timed call meets a cold handle
+    warm = 2 if cfg.decoder else 0
+    lm_serve(cfg, params, api.concrete_batch(
+        cfg, InputShape("w", 16, 1, "prefill"), seed=9), warm,
+        lm_cache_len(cfg, 1, 16, warm), False)
+    batch = api.concrete_batch(cfg, InputShape("p", s, b, "prefill"), seed=1)
+    cl = lm_cache_len(cfg, b, s, steps)
+    out = {"phase": "lm", "config": name, **fields, "family": cfg.family,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "params": n_params, "cache_len": cl}
+    out.update(lm_serve(cfg, params, batch, steps if cfg.decoder else 0, cl))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if bounds is not None:
+        out.update(bounds(n_params, cl))
+    out["card_vs_cpu"] = lm_card_vs_cpu(cfg, params, cpu_b, cpu_s)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return params
+
+
+def lm_phase() -> None:
+    """The LM scaffold's serving path on the card: (a) qwen2-0.5b at full
+    width and depth, 8 prompts of 2,048 tokens and 32 greedy decode steps,
+    with (c) the card against the CPU port in fp32 and matmul_f32 at its
+    shapes; (b) one prompt of 32,768 tokens; (d) the other decoding
+    configs at full width, 2 blocks deep; (e) hubert-xlarge (encoder:
+    prefill only) at full width, 2 blocks deep, and
+    llama4-maverick-400b-a17b at reduced_config.  No hand kernel is on
+    this path: the phase launches none."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS, InputShape, reduced_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    cfg = ARCHS[LM_MODEL]
+
+    def bounds(n_params, cl):
+        weight_bytes = n_params * 2                        # bf16 copies
+        cache_bytes = 2 * cfg.num_layers * LM_BATCH * cfg.num_kv_heads \
+            * cl * cfg.hd * 2
+        return {"prefill_bound_ms": lm_prompt_ops(cfg, LM_BATCH, LM_PROMPT)
+                / BF16_OPS_PER_S * 1e3,
+                "decode_bound_ms": (weight_bytes + cache_bytes)
+                / MEM_BYTES_PER_S * 1e3,
+                "decode_bound_with_cast_ms": (n_params * 8 + cache_bytes)
+                / MEM_BYTES_PER_S * 1e3}
+
+    # (a) 8 x 2,048 and 32 greedy steps, decode held to prefill, and (c)
+    # the card against the CPU port, fp32, at 2 x 128
+    params = lm_config_run(LM_MODEL, cfg, LM_BATCH, LM_PROMPT, LM_STEPS,
+                           LM_CPU_BATCH, LM_CPU_PROMPT, bounds, case="a")
+    emit({"phase": "lm", "config": LM_MODEL, "case": "matmul_f32",
+          **lm_matmul_check(cfg, LM_BATCH, LM_PROMPT, lm_cache_len(
+              cfg, LM_BATCH, LM_PROMPT, LM_STEPS))})
+
+    # (b) one prompt at PREFILL_32K's length: time to first token
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = api.concrete_batch(
+        cfg, InputShape("b", LM_LONG, 1, "prefill"), seed=2)
+    serve = lm_serve(cfg, params, batch, LM_LONG_STEPS,
+                     LM_LONG + api.DECODE_PAD, check=False)
+    b_out = {"phase": "lm", "config": LM_MODEL, "case": "b",
+             "cache_len": LM_LONG + api.DECODE_PAD, **serve,
+             "time_to_first_token_s": serve["prefill_s"],
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "prefill_bound_ms": lm_prompt_ops(cfg, 1, LM_LONG)
+             / BF16_OPS_PER_S * 1e3}
+    emit(b_out)
+    del batch, params
+    torch.cuda.empty_cache()
+    emit(lm_op_times())
+
+    # (d) the other decoding configs, full width, 2 blocks deep; MoE at
+    # capacity_factor 16 as tests/test_models.py runs it, so that no slot
+    # of the prefill is dropped where the step keeps it
+    for name in LM_DEPTH2:
+        dcfg = ARCHS[name]
+        dcfg = dataclasses.replace(
+            dcfg, num_layers=2 * tf.layers_per_block(dcfg),
+            **({"capacity_factor": 16.0} if dcfg.num_experts else {}))
+        lm_config_run(name, dcfg, LM_D_BATCH,
+                      LM_D_PROMPTS.get(name, LM_D_PROMPT), LM_D_STEPS,
+                      1, LM_D_CPU_PROMPT)
+    # (e) the encoder (no decode shapes) and llama4 at reduced_config: one
+    # of its routed layers alone holds 16.1 B parameters at full width
+    lm_config_run("hubert-xlarge", dataclasses.replace(
+        ARCHS["hubert-xlarge"], num_layers=2), LM_D_BATCH, LM_D_PROMPT, 0,
+        1, LM_D_CPU_PROMPT)
+    lm_config_run(
+        "llama4-maverick-400b-a17b",
+        reduced_config(ARCHS["llama4-maverick-400b-a17b"],
+                       capacity_factor=16.0),
+        LM_D_BATCH, LM_D_PROMPT, LM_D_STEPS, 1, LM_D_CPU_PROMPT)
+    launches = launch_counts()
+    if any(launches.values()):
+        fail(f"lm: the LM path launched hand kernels {launches}")
+    emit({"phase": "lm_summary", "configs": [LM_MODEL, *LM_DEPTH2,
+                                             "hubert-xlarge",
+                                             "llama4-maverick-400b-a17b"],
+          "hand_kernel_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=13.0,
@@ -2195,6 +2686,7 @@ def main() -> None:
     del gov_ds, gov_queries
     timed("parity", parity_phase, args.parity_scale)
     timed("examples", examples_phase)
+    timed("lm", lm_phase)
     emit({"phase": "seconds", "seconds": seconds,
           "total": time.perf_counter() - t_start})
 

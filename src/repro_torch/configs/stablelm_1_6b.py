@@ -1,0 +1,8 @@
+"""StableLM-2 1.6B — dense, GQA kv=32 (== MHA) [hf:stabilityai/stablelm-2-1_6b]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-1.6b", family="dense",
+    num_layers=24, d_model=2048, num_heads=32, num_kv_heads=32,
+    head_dim=64, d_ff=5632, vocab_size=100352,
+)

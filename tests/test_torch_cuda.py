@@ -1,5 +1,6 @@
 """The CUDA kernels of repro_torch against their plain PyTorch versions, on
-the card.  Needs an NVIDIA GPU and nvcc; every test carries the ``cuda``
+the card, and the LM scaffold (repro_torch.models) on the card against the
+CPU.  Needs an NVIDIA GPU and nvcc; every test carries the ``cuda``
 marker and skips where CUDA is absent.  Imports nothing of JAX, so it runs
 on a machine with only PyTorch:
 
@@ -648,3 +649,163 @@ def test_cuda_governed_fault_counters_match_cpu(dev):
     assert card == cpu
     assert card[0] == want
     assert all("force_simple_impls" in s for s in card[1])
+
+
+# ---------------------------------------------------------------------- #
+# LM scaffold (repro_torch.models): the card against the port on the CPU
+# ---------------------------------------------------------------------- #
+@pytest.fixture
+def no_tf32(dev):
+    """fp32 products in full fp32 on the card, as on the CPU."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield dev
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def _lm_close(got, want, what, rel=1e-4):
+    """got, want: nested dicts of numpy arrays (convert.cache_to_numpy)."""
+    from repro_torch.models.param import tree_leaves
+    g = dict(tree_leaves(got))
+    for path, a in tree_leaves(want):
+        assert g[path].shape == a.shape, (what, path)
+        if a.size:
+            err = float(np.max(np.abs(g[path] - a)))
+            assert err <= rel * max(1.0, float(np.max(np.abs(a)))), \
+                (what, path, err)
+
+
+LM_NAMES = ["granite-moe-1b-a400m", "hubert-xlarge", "hymba-1.5b",
+            "llama4-maverick-400b-a17b", "minitron-8b", "paligemma-3b",
+            "qwen2-0.5b", "rwkv6-7b", "stablelm-1.6b", "starcoder2-15b"]
+
+
+def _lm_card_and_cpu_runs(cfg):
+    """Prefill 2 x 40 and two decode steps of cfg with the same weights on
+    the CPU and on the card: {"cpu": [...], "cuda": [...]}, one snapshot
+    (logits and cache, convert.cache_to_numpy) per call."""
+    from repro_torch.configs import InputShape
+    from repro_torch.models import api, convert
+    cpu = api.init_model(cfg, 0, device="cpu")
+    card = convert.params_from_reference(cfg, convert.cache_to_numpy(cpu))
+    batch = api.concrete_batch(cfg, InputShape("t", 40, 2, "prefill"), seed=2)
+    cl = api.decode_cache_len(cfg, InputShape("d", 48, 2, "decode"))
+    runs = {}
+    for where, params in (("cpu", cpu), ("cuda", card)):
+        logits, cache = api.make_prefill_fn(cfg, cache_len=cl)(params, batch)
+        assert logits.device.type == where
+        # decode writes the attention caches in place: snapshot each step
+        out = [convert.cache_to_numpy({"logits": logits, "cache": cache})]
+        if cfg.decoder:
+            decode = api.make_decode_fn(cfg)
+            for t in (5, 9):
+                tok = torch.full((2,), t, dtype=torch.int32,
+                                 device=logits.device)
+                logits, cache = decode(params, cache, tok)
+                out.append(convert.cache_to_numpy({"logits": logits,
+                                                   "cache": cache}))
+        runs[where] = out
+    return runs
+
+
+@pytest.mark.parametrize("name", LM_NAMES)
+def test_cuda_lm_prefill_decode_match_cpu(no_tf32, name):
+    """Prefill and two decode steps of every config at reduced_config, in
+    fp32 with TF32 off: logits and every cache leaf on the card against the
+    same weights on the CPU, max|Δ| <= 1e-4·max(1, max|ref|)."""
+    from repro_torch.configs import ARCHS, reduced_config
+    runs = _lm_card_and_cpu_runs(reduced_config(ARCHS[name]))
+    for i, (c, g) in enumerate(zip(runs["cpu"], runs["cuda"])):
+        _lm_close(g, c, f"step {i}")
+
+
+@pytest.mark.parametrize("name", LM_NAMES)
+def test_cuda_lm_bf16_prefill_decode_match_cpu(no_tf32, name, monkeypatch):
+    """The same in bf16 (fp32 master weights; MoE at capacity_factor 16):
+    the card's products with an fp32 result run on bf16 operands
+    (nn_ops.matmul_f32, out_dtype=float32), the CPU's on operands widened
+    to fp32.  Logits and every cache leaf within the reference's bf16
+    criterion, 2e-2·max(1, max|ref|): the two stacks round to bf16 after
+    sums taken in different orders.
+
+    A router choice is discontinuous: where two experts' bf16
+    probabilities (nearly) tie, the card's rounding may pick the other
+    one (granite at reduced_config: a layer-1 k 0.051 off).  So an MoE
+    config runs on the card with the experts the CPU chose, call by call,
+    gated by the card's own probabilities; and every token whose experts
+    the card itself would have chosen otherwise must be a near tie on the
+    CPU: its k-th and (k+1)-th probabilities no further apart than twice
+    the token's largest card-to-CPU probability difference."""
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import moe
+    cfg = reduced_config(ARCHS[name], dtype="bfloat16")
+    calls = {"cpu": [], "cuda": []}
+    if cfg.num_experts:
+        cfg = reduced_config(ARCHS[name], dtype="bfloat16",
+                             capacity_factor=16.0)
+        real = moe.route
+
+        def route(cfg_, p, xt):
+            probs, gate, eid = real(cfg_, p, xt)
+            if not xt.is_cuda:
+                calls["cpu"].append((probs, eid))
+                return probs, gate, eid
+            calls["cuda"].append((probs.cpu(), eid.cpu()))
+            eid = calls["cpu"][len(calls["cuda"]) - 1][1].to(xt.device)
+            gate = torch.gather(probs, 1, eid)
+            gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+            return probs, gate, eid
+        monkeypatch.setattr(moe, "route", route)
+    runs = _lm_card_and_cpu_runs(cfg)
+    for i, (c, g) in enumerate(zip(runs["cpu"], runs["cuda"])):
+        _lm_close(g, c, f"step {i}", rel=2e-2)
+    assert len(calls["cpu"]) == len(calls["cuda"])
+    k = cfg.experts_per_token
+    for (pc, ec), (pg, eg) in zip(calls["cpu"], calls["cuda"]):
+        assert float((pc - pg).abs().max()) <= 2e-2
+        other = (ec.sort(-1).values != eg.sort(-1).values).any(-1)
+        top = pc.sort(-1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        near = (pc - pg).abs().max(-1).values
+        assert bool((gap[other] <= 2 * near[other]).all())
+
+
+@pytest.mark.parametrize("shape_a,shape_b", [
+    ((96, 64), (64, 130)), ((16, 7 * 64, 64), (16, 64, 1024)),
+    ((16, 7 * 64, 1024), (16, 1024, 64)), ((16, 7, 64), (16, 64, 2176))])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_matmul_f32_matches_widened_operands(no_tf32, shape_a, shape_b,
+                                                   dtype):
+    """nn_ops.matmul_f32 on the card (half operands, out_dtype=float32)
+    against the product of the operands widened to fp32 (exact for half
+    types), on the card and on the CPU: an fp32 result within
+    1e-5·max(1, max|ref|), the distance of two fp32 summation orders (a
+    result rounded to the operands' dtype is ~4e-3 off)."""
+    from repro_torch.models import nn_ops
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn(shape_a, generator=gen).to(dtype)
+    b = torch.randn(shape_b, generator=gen).to(dtype)
+    got = nn_ops.matmul_f32(a.cuda(), b.cuda())
+    assert got.dtype == torch.float32 and got.is_cuda
+    for want in (torch.matmul(a.cuda().float(), b.cuda().float()).cpu(),
+                 nn_ops.matmul_f32(a, b)):
+        assert want.dtype == torch.float32
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-5 * max(1.0, float(want.abs().max())), err
+
+
+def test_cuda_lm_weights_default_to_the_card(dev):
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import api, convert
+    from repro_torch.models.param import tree_leaves
+    cfg = reduced_config(ARCHS["qwen2-0.5b"])
+    params = api.init_model(cfg)
+    assert all(t.is_cuda for _, t in tree_leaves(params))
+    tree = convert.cache_to_numpy(params)
+    carried = convert.params_from_reference(cfg, tree)
+    for path, t in tree_leaves(carried):
+        assert t.is_cuda and np.array_equal(t.cpu().numpy(),
+                                            dict(tree_leaves(tree))[path])
