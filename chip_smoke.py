@@ -116,7 +116,9 @@ exits non-zero without its final line:
             configuration
   examples  python -m repro_torch.examples.quickstart and serve_queries
             --governed --chaos --delta --snapshot PATH, in this process on
-            the card at their default scales; any exception fails
+            the card at their default scales, and train_lm (30 steps,
+            --ckpt-every 10, then again with --resume: the final losses
+            within 1e-3 relative); any exception fails
   lm        the LM scaffold's serving path (repro_torch.models; plain
             PyTorch, no hand kernel: the phase fails if one launches),
             weights from a torch.Generator seeded 0 on the card:
@@ -146,6 +148,47 @@ exits non-zero without its final line:
             tokens/s, the peak memory, the errors, the per-call cast's
             share of a step and the device's busy share of a step
             (torch.profiler)
+  train     the LM scaffold's training path (repro_torch.models' loss and
+            train step, optim, checkpoint, data; plain PyTorch, no hand
+            kernel: the phase fails if one launches), weights from a
+            torch.Generator seeded 0 on the card: (a) qwen2-0.5b at full
+            width and depth, bf16 activations over fp32 masters,
+            TrainConfig(grad_dtype="bfloat16", microbatch=4, remat=True),
+            4 steps (the first a warm-up) of 16 x 4,096 tokens from
+            TokenPipeline (train_4k's length; its global batch of 256 cut
+            to 16 for time), each loss and grad_norm finite; prints
+            seconds a step, tokens/s, the step's FLOPs (4x the forward:
+            the recompute and the backward; attention masked, not
+            skipped; the loss head; beside them the work the step needs:
+            no recompute, causal pairs only) and their bounds at 989
+            TFLOP/s, the model-FLOPs (6·N·D) share of peak and the peak
+            memory; one more step of (a) split by part on the device
+            (CUDA events where attention, the loss head and the
+            optimizer begin and end, in the forward pass, the recompute
+            and the backward pass); and, on one microbatch's rows as a
+            step of its own, a step with the blocks indexed one by one
+            in place of unbind (the trunk's way before
+            transformer.unstack) between two with unbind, and that
+            microbatch step's busy share and top kernels under
+            torch.profiler; (b) 8 steps on one
+            fixed 2 x 512 batch (lr 1e-3, warm-up 1): the loss must fall;
+            (c) fp32, TF32 off, card against the port on the CPU at
+            2 x 128: loss within 1e-5, grad_norm 1e-4 (relative), every
+            gradient leaf within 1e-4·max|ref leaf|; matmul_f32's
+            backward (bf16) at (a)'s attention and loss-head products
+            against widened fp32 autograd, within one bf16 ulp of
+            max|ref|; the parts' times (one layer's attention, the loss
+            head, the optimizer); (d) stablelm, starcoder2, minitron,
+            granite-moe (capacity_factor 16), paligemma (256 patches),
+            hymba, rwkv6 and hubert (its mask) at full width, 2 blocks
+            deep, and llama4 at reduced_config: one step of 2 x 512 with
+            microbatch 2 and fp32 gradients, a finite loss and parameters
+            that moved; (e) (a)'s params and AdamW state saved by the
+            Checkpointer asynchronously, a step taken (in place), and
+            restored onto the card: every leaf equal bit for bit, and a
+            step from the restored state equal to the same step from the
+            in-memory state as closely as two in-memory runs of it are
+            (deterministic algorithms on: bit for bit where they are)
   seconds   each phase's wall seconds
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
@@ -2077,11 +2120,27 @@ EXAMPLE_KERNELS = ("merge_probe", "expand_segments", "interval_count")
 def examples_phase() -> dict:
     """python -m repro_torch.examples.quickstart and serve_queries
     --governed --chaos --delta --snapshot PATH, run in this process on the
-    card at their default scales; any exception fails the phase."""
+    card at their default scales, and train_lm for 30 steps with
+    checkpoints, then again with --resume; any exception fails the
+    phase."""
     import contextlib
     import io
     import tempfile
-    from repro_torch.examples import quickstart, serve_queries
+    from repro_torch.examples import quickstart, serve_queries, train_lm
+
+    def train_and_resume(tmp):
+        """train_lm's 30 steps with a checkpoint every 10, then again with
+        --resume from step 20: the final losses agree within 1e-3
+        (relative: the card's atomic sums need not repeat bit for bit)."""
+        argv = ["--device", DEVICE, "--steps", "30", "--ckpt-every", "10",
+                "--ckpt-dir", os.path.join(tmp, "ckpt")]
+        full = train_lm.main(argv)
+        resumed = train_lm.main(argv + ["--resume"])
+        err = abs(resumed["final_loss"] - full["final_loss"])
+        if not (resumed["resumed_from"] == 20 and math.isfinite(err)
+                and err <= 1e-3 * abs(full["final_loss"])):
+            fail(f"examples train_lm: resumed {resumed}, full {full}")
+        return {"full": full, "resumed": resumed, "final_loss_abs_diff": err}
 
     t_phase = time.perf_counter()
     reset_launches()
@@ -2091,7 +2150,8 @@ def examples_phase() -> dict:
                      ("serve_queries", lambda tmp: serve_queries.main(
                          ["--device", DEVICE, "--governed", "--chaos",
                           "--delta", "--snapshot",
-                          os.path.join(tmp, "serve.snap")]))):
+                          os.path.join(tmp, "serve.snap")])),
+                     ("train_lm", train_and_resume)):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp, \
@@ -2599,6 +2659,675 @@ def lm_phase() -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------- #
+# train: the LM scaffold's training path (repro_torch.models, optim,
+# checkpoint, data) on the card
+# ---------------------------------------------------------------------- #
+TRAIN_MODEL = "qwen2-0.5b"              # (a)-(c), (e): full width and depth
+# (a): train_4k's sequence; its global batch of 256 cut to 16 for time
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 16, 4096, 4, 4
+TRAIN_FULL_BATCH = 256
+TRAIN_MEM_BATCH, TRAIN_MEM_SEQ, TRAIN_MEM_STEPS = 2, 512, 8     # (b)
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128                          # (c)
+TRAIN_D_BATCH, TRAIN_D_SEQ = 2, 512                              # (d)
+# (c)'s limits: the card's fp32 loss, grad_norm and every gradient leaf
+# against the CPU's (different summation orders), each relative to the
+# CPU's value (a leaf: to its max|ref|); matmul_f32's bf16 gradients
+# against widened fp32 autograd: one bf16 ulp at max|ref|
+TRAIN_LOSS_LIMIT, TRAIN_NORM_LIMIT, TRAIN_GRAD_LIMIT = 1e-5, 1e-4, 1e-4
+TRAIN_BF16_ULP = 2.0 ** -8
+
+
+def train_flops(cfg, b: int, s: int) -> dict:
+    """Operations of one train step over b x s tokens with per-block and
+    per-chunk remat: the forward F (every block weight's product, the
+    attention's causal rectangle masked, not skipped, over KV chunks of
+    1,024, and the loss head's logits), again in the recompute, and twice
+    in the backward pass: 4F.  The work the step needs is 3F' (no
+    recompute; F' with attention over the causal triangle's s(s+1)/2
+    query-key pairs only).  Model FLOPs are 6·N·D (N every parameter, D
+    the tokens)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import count_params
+    t = b * s
+    blocks = count_params(tf.model_defs(cfg)["blocks"])
+    skv = s if s <= 1024 else -(-s // 1024) * 1024
+    attn = 4 * b * cfg.num_heads * s * skv * cfg.hd * cfg.num_layers
+    head = 2 * t * cfg.vocab_size * cfg.d_model
+    causal = 4 * b * cfg.num_heads * (s * (s + 1) // 2) * cfg.hd \
+        * cfg.num_layers
+    fwd = 2 * blocks * t + attn + head
+    n = count_params(tf.model_defs(cfg))
+    return {"forward_flop": fwd, "attention_flop": attn,
+            "attention_causal_flop": causal, "head_flop": head,
+            "step_flop": 4 * fwd,
+            "needed_step_flop": 3 * (2 * blocks * t + causal + head),
+            "model_flop": 6 * n * t}
+
+
+def train_tree_clone(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def train_bits(t):
+    """A tensor's bit patterns, for equality bit for bit."""
+    import torch
+    views = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return t.view(views[t.dtype]) if t.dtype in views else t
+
+
+def train_tree_equal(got, want) -> bool:
+    """Every leaf equal bit for bit."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    g = dict(tree_leaves(got))
+    return all(torch.equal(train_bits(g[p]), train_bits(w))
+               for p, w in tree_leaves(want))
+
+
+def train_tree_diff(got, want) -> float:
+    """max over leaves of max|got - want| / max(1, max|want|)."""
+    from repro_torch.tree import tree_leaves
+    g = dict(tree_leaves(got))
+    worst = 0.0
+    for path, w in tree_leaves(want):
+        if w.numel():
+            err, scale = lm_max_err(g[path], w)
+            worst = max(worst, err / max(1.0, scale))
+    return worst
+
+
+def train_batch(cfg, b: int, s: int, seed: int = 1):
+    from repro_torch.configs import InputShape
+    from repro_torch.models import api
+    return api.concrete_batch(cfg, InputShape("t", s, b, "train"), seed=seed)
+
+
+def train_top_kernels(step, n: int = 8) -> dict:
+    """One call of step under torch.profiler, tracing the card only (a
+    step launches some 10^5 kernels; host events would multiply the
+    trace): its device time (ms) and the n kernels that took the most of
+    it, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    dev = device_times(prof)
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:n]
+    return {"device_ms": sum(dev.values()), "kernels": len(dev),
+            "top": [[k[:90], v] for k, v in top]}
+
+
+def train_select_blocks(tree, n: int) -> list:
+    """The n blocks of a stacked tree by indexing every leaf once a block
+    (v[i]: each select's backward is a zero-filled gradient of the whole
+    stacked leaf), the way the trunk walked its blocks before
+    transformer.unstack."""
+    def at(t, i):
+        return {k: at(v, i) if isinstance(v, dict) else v[i]
+                for k, v in t.items()}
+    return [at(tree, i) for i in range(n)]
+
+
+def train_split_step(step_fn, params, opt, batch, step) -> tuple:
+    """One call of step_fn with its device time split by part, read from
+    the step itself: CUDA events on the step's stream where a part begins
+    and ends.  Attention (every flash_attention call) and the loss head
+    (chunked_cross_entropy) are opened and closed by identity autograd
+    Functions, which mark them in the forward pass, in the recompute
+    (marks met after the microbatch's backward began) and in the backward
+    pass (the closing mark's backward runs first, the opening one's last;
+    the loss head's per-chunk recompute falls inside its backward);
+    clipping and AdamW are marked around their calls.  Returns (split,
+    params, opt): ms per part and pass, the step's ms between its first
+    and last event, and the rest."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    marks, state = [], {"pass": "forward"}
+
+    def record(part, edge, pass_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((part, pass_, edge, ev))
+
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, part, edge, *xs):
+            ctx.part, ctx.edge = part, edge
+            record(part, edge, state["pass"])
+            return tuple(x.view_as(x) for x in xs)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            state["pass"] = "recompute"
+            record(ctx.part, "begin" if ctx.edge == "end" else "end",
+                   "backward")
+            return (None, None, *gs)
+
+    def marked(part, fn):
+        def call(*xs, **kw):
+            ys = fn(*Mark.apply(part, "begin", *xs), **kw)
+            return Mark.apply(part, "end", ys)[0]
+        return call
+
+    def forward_first(fn):
+        def call(*a, **kw):
+            state["pass"] = "forward"
+            return fn(*a, **kw)
+        return call
+
+    def optimizer(fn, edge):
+        def call(*a, **kw):
+            if edge == "begin":
+                record("optimizer", "begin", "step")
+            out = fn(*a, **kw)
+            if edge == "end":
+                record("optimizer", "end", "step")
+            return out
+        return call
+
+    saved = {(tf, "flash_attention"): tf.flash_attention,
+             (tf, "chunked_cross_entropy"): tf.chunked_cross_entropy,
+             (tf, "loss_fn"): tf.loss_fn,
+             (api, "clip_by_global_norm"): api.clip_by_global_norm,
+             (api, "adamw_update"): api.adamw_update}
+    tf.flash_attention = marked("attention", tf.flash_attention)
+    tf.chunked_cross_entropy = marked("loss_head", tf.chunked_cross_entropy)
+    tf.loss_fn = forward_first(tf.loss_fn)
+    api.clip_by_global_norm = optimizer(api.clip_by_global_norm, "begin")
+    api.adamw_update = optimizer(api.adamw_update, "end")
+    try:
+        torch.cuda.synchronize()
+        record("step", "begin", "step")
+        params, opt, m = step_fn(params, opt, batch, step)
+        record("step", "end", "step")
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    ms, spans, open_ = {}, {}, {}
+    for part, pass_, edge, ev in marks:
+        key = (part, pass_)
+        if edge == "begin":
+            if key in open_:
+                fail(f"train split: {key} opened twice")
+            open_[key] = ev
+        else:
+            key_ms = open_.pop(key).elapsed_time(ev)
+            ms[key] = ms.get(key, 0.0) + key_ms
+            spans[key] = spans.get(key, 0) + 1
+    if open_:
+        fail(f"train split: spans left open {sorted(open_)}")
+    step_ms = ms.pop(("step", "step"))
+    parts = {}
+    for (part, pass_), v in ms.items():
+        parts.setdefault(part, {})[pass_] = v
+        parts[part][f"{pass_}_spans"] = spans[(part, pass_)]
+    for part, d in parts.items():
+        d["ms"] = sum(v for k, v in d.items() if not k.endswith("_spans"))
+        d["share"] = d["ms"] / step_ms
+    rest = step_ms - sum(d["ms"] for d in parts.values())
+    rec = {k: float(v) for k, v in m.items()}
+    if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+        fail(f"train split step: loss or grad_norm not finite ({rec})")
+    return ({"step_ms": step_ms, "parts": parts, "rest_ms": rest,
+             "rest_share": rest / step_ms, "metrics": rec}, params, opt)
+
+
+def train_op_times(cfg, mb: int, s: int) -> dict:
+    """Seconds of the step's parts at (a)'s microbatch of mb x s tokens
+    (host clock around synchronised calls, after one warm call): one
+    layer's flash_attention forward and forward + backward (bf16), the
+    loss head (chunked_cross_entropy, forward + backward with its
+    recompute) and the optimizer (clip_by_global_norm and adamw_update
+    over the whole model)."""
+    import torch
+    from repro_torch.models import api, nn_ops
+    from repro_torch.optim import adamw_init, adamw_update, \
+        clip_by_global_norm
+    from repro_torch.tree import tree_map
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16).requires_grad_()
+
+    def seconds(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    q = randn(mb, cfg.num_heads, s, cfg.hd)
+    k = randn(mb, cfg.num_kv_heads, s, cfg.hd)
+    v = randn(mb, cfg.num_kv_heads, s, cfg.hd)
+    gy = torch.randn(q.shape, generator=gen, device=DEVICE,
+                     dtype=torch.bfloat16)
+    with torch.no_grad():
+        fwd_s = seconds(lambda: nn_ops.flash_attention(q, k, v))
+    both_s = seconds(lambda: torch.autograd.grad(
+        nn_ops.flash_attention(q, k, v), (q, k, v), gy))
+    del q, k, v, gy
+    x = randn(mb, s, cfg.d_model)
+    un = randn(cfg.vocab_size, cfg.d_model)
+    labels = torch.randint(0, cfg.vocab_size, (mb, s), generator=gen,
+                           device=DEVICE)
+    head_s = seconds(lambda: torch.autograd.grad(
+        nn_ops.chunked_cross_entropy(x, un, labels,
+                                     chunk=cfg.loss_chunk), (x, un)))
+    del x, un
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    opt = adamw_init(params)
+    grads = tree_map(lambda p: torch.full_like(p, 1e-3), params)
+    opt_s = seconds(lambda: adamw_update(
+        clip_by_global_norm(grads, 1.0)[0], opt, params, 1e-4))
+    return {"attention_layer_fwd_s": fwd_s,
+            "attention_layer_fwd_bwd_s": both_s,
+            "loss_head_fwd_bwd_s": head_s, "optimizer_s": opt_s,
+            "microbatch": [mb, s]}
+
+
+def train_qwen_steps(cfg, params, opt) -> dict:
+    """(a): TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens from
+    TokenPipeline, microbatch TRAIN_MICRO, bf16 gradients, remat; the first
+    a warm-up.  Then one more such step split by part on the device
+    (train_split_step).  Then, on one microbatch's rows as a step of its
+    own (microbatch 1): a step with the blocks indexed one by one
+    (train_select_blocks) in place of unbind, between two unbind steps,
+    and one step under torch.profiler (that microbatch step's device busy
+    share against the unbind steps' mean wall time)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    tcfg = TrainConfig(grad_dtype="bfloat16", microbatch=TRAIN_MICRO,
+                       remat=True, warmup=2, total_steps=100)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    out = {"batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "cut": f"global batch {TRAIN_FULL_BATCH} of train_4k cut to "
+                  f"{TRAIN_BATCH} for the run's time",
+           "microbatch": TRAIN_MICRO, "grad_dtype": "bfloat16",
+           "steps": [], "step_s": []}
+    i = 0
+
+    def one_step(step_fn, rows=None):
+        nonlocal params, opt, i
+        b = pipe.global_batch_at(i)
+        if rows:
+            b = {k: v[:rows] for k, v in b.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b, i)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rec = {k: float(v) for k, v in m.items()}
+        if not (math.isfinite(rec["loss"])
+                and math.isfinite(rec["grad_norm"])):
+            fail(f"train {cfg.name} step {i}: loss or grad_norm not finite "
+                 f"({rec})")
+        i += 1
+        return dt, rec
+
+    step_fn = api.make_train_step(cfg, tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        dt, rec = one_step(step_fn)
+        out["steps"].append(rec)
+        out["step_s"].append(dt)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    timed = out["step_s"][1:]
+    step_s = sum(timed) / len(timed)
+    fl = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out.update({"seconds_per_step": step_s, "tokens_per_s": tokens / step_s,
+                **fl, "step_bound_s": fl["step_flop"] / BF16_OPS_PER_S,
+                "model_flop_bound_s": fl["model_flop"] / BF16_OPS_PER_S,
+                "needed_step_bound_s":
+                    fl["needed_step_flop"] / BF16_OPS_PER_S,
+                "attention_bound_s":
+                    4 * fl["attention_flop"] / BF16_OPS_PER_S,
+                "attention_causal_bound_s":
+                    3 * fl["attention_causal_flop"] / BF16_OPS_PER_S,
+                "model_flops_share_of_peak":
+                    fl["model_flop"] / BF16_OPS_PER_S / step_s,
+                "step_flops_share_of_peak":
+                    fl["step_flop"] / BF16_OPS_PER_S / step_s})
+    t0 = time.perf_counter()
+    split, params, opt = train_split_step(step_fn, params, opt,
+                                          pipe.global_batch_at(i), i)
+    i += 1
+    out["split_step"] = {**split, "wall_s": time.perf_counter() - t0}
+    # one microbatch's rows as a step: the blocks indexed one by one (one
+    # select per block and leaf) between two unbind steps, then a profiled
+    # step
+    rows = TRAIN_BATCH // TRAIN_MICRO
+    step_mb = api.make_train_step(cfg, dataclasses.replace(tcfg,
+                                                           microbatch=1))
+    unstack = tf.unstack
+    ways = {"batch": [rows, TRAIN_SEQ], "select": [], "unbind": []}
+    for way in ("unbind", "select", "unbind"):
+        tf.unstack = unstack if way == "unbind" else train_select_blocks
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            dt, _ = one_step(step_mb, rows)
+        finally:
+            tf.unstack = unstack
+        ways[way].append({"step_s": dt, "peak_gb":
+                          torch.cuda.max_memory_allocated() / 1e9})
+    out["select_vs_unbind"] = ways
+    mb_s = sum(w["step_s"] for w in ways["unbind"]) / len(ways["unbind"])
+    t0 = time.perf_counter()
+    prof = train_top_kernels(lambda: one_step(step_mb, rows))
+    out["profiled_step"] = {"batch": [rows, TRAIN_SEQ], "microbatch": 1,
+                            **prof, "wall_s": time.perf_counter() - t0,
+                            "unprofiled_s": mb_s,
+                            "busy_share": prof["device_ms"] / 1e3 / mb_s}
+    return out, params, opt
+
+
+def train_memorise(cfg, params) -> dict:
+    """(b): TRAIN_MEM_STEPS steps on one fixed TRAIN_MEM_BATCH x
+    TRAIN_MEM_SEQ batch (lr 1e-3, warm-up 1): the loss must fall."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    step_fn = api.make_train_step(cfg, TrainConfig(
+        lr=1e-3, warmup=1, total_steps=30, grad_dtype="bfloat16"))
+    batch = train_batch(cfg, TRAIN_MEM_BATCH, TRAIN_MEM_SEQ)
+    opt = adamw_init(params)
+    losses = []
+    for i in range(TRAIN_MEM_STEPS):
+        params, opt, m = step_fn(params, opt, batch, i)
+        losses.append(float(m["loss"]))
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        fail(f"train {cfg.name}: memorisation loss did not fall {losses}")
+    return {"batch": [TRAIN_MEM_BATCH, TRAIN_MEM_SEQ], "losses": losses}
+
+
+def train_matmul_backward(cfg, mb: int, s: int) -> dict:
+    """nn_ops.matmul_f32's backward on the card (bf16 operands, an fp32
+    cotangent) at (a)'s products: flash attention's QK and PV over a KV
+    chunk of 1,024 and the loss head's logits of one chunk, against
+    autograd of the product of the widened operands (TF32 off): each
+    gradient in bf16, within TRAIN_BF16_ULP·max|ref| (one bf16 ulp where
+    the two fp32 sums round apart)."""
+    import torch
+    from repro_torch.models import nn_ops
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    bh, g, hd = mb * cfg.num_kv_heads, \
+        cfg.num_heads // cfg.num_kv_heads, cfg.hd
+    chunk = min(cfg.loss_chunk, s)
+    shapes = {"flash_qk": ((bh, g * s, hd), (bh, hd, 1024)),
+              "flash_pv": ((bh, g * s, 1024), (bh, 1024, hd)),
+              "loss_head": ((mb * chunk, cfg.d_model),
+                            (cfg.vocab_size, cfg.d_model))}
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for name, (sa, sb) in shapes.items():
+            a = torch.randn(sa, generator=gen, device=DEVICE,
+                            dtype=torch.bfloat16).requires_grad_()
+            b = torch.randn(sb, generator=gen, device=DEVICE,
+                            dtype=torch.bfloat16).requires_grad_()
+            bt = b.t() if name == "loss_head" else b   # x @ un.t()
+            y = nn_ops.matmul_f32(a, bt)
+            gy = torch.randn(y.shape, generator=gen, device=DEVICE)
+            got = torch.autograd.grad(y, (a, b), gy)
+            want = torch.autograd.grad(
+                torch.matmul(a.float(), bt.float()), (a, b), gy)
+            rec = {"a": list(sa), "b": list(sb)}
+            for side, gg, ww in zip("ab", got, want):
+                if gg.dtype != torch.bfloat16:
+                    fail(f"train matmul_f32 {name}: d{side} is {gg.dtype}")
+                err, scale = lm_max_err(gg, ww)
+                if not err <= TRAIN_BF16_ULP * scale:
+                    fail(f"train matmul_f32 {name} d{side}: max|Δ| {err} "
+                         f"over {TRAIN_BF16_ULP}·{scale}")
+                rec[f"d{side}_max_abs_err"] = err
+                rec[f"d{side}_ref_max_abs"] = scale
+                rec[f"d{side}_bitwise_equal"] = bool(torch.equal(
+                    train_bits(gg), train_bits(ww)))
+            out[name] = rec
+            del a, b, bt, y, gy, got, want
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    return out
+
+
+def train_card_vs_cpu(cfg, params) -> dict:
+    """(c): cfg in fp32, TF32 off: the loss and every gradient of
+    make_loss_fn over TRAIN_CPU_BATCH x TRAIN_CPU_SEQ tokens on the card
+    and on the CPU with the same weights; the loss within
+    TRAIN_LOSS_LIMIT, grad_norm within TRAIN_NORM_LIMIT (relative) and
+    every gradient leaf within TRAIN_GRAD_LIMIT·max|ref leaf|."""
+    import dataclasses
+    import torch
+    from repro_torch.models import api
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_from_leaves, tree_leaves
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    batch = train_batch(cfg, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, seed=7)
+    loss_fn = api.make_loss_fn(cfg)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    t0 = time.perf_counter()
+    try:
+        for where, p in (("card", params), ("cpu", lm_tree_cpu(params))):
+            wrt = {k: v.detach().requires_grad_()
+                   for k, v in tree_leaves(p)}
+            loss, _ = loss_fn(tree_from_leaves(wrt), batch)
+            grads = dict(zip(wrt, torch.autograd.grad(
+                loss, list(wrt.values()))))
+            runs[where] = (float(loss.detach()), float(global_norm(grads)),
+                           {k: g.cpu() for k, g in grads.items()})
+            del wrt, grads
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    (l_card, n_card, g_card), (l_cpu, n_cpu, g_cpu) = runs["card"], \
+        runs["cpu"]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    norm_err = abs(n_card - n_cpu) / n_cpu
+    if not (loss_err <= TRAIN_LOSS_LIMIT and norm_err <= TRAIN_NORM_LIMIT):
+        fail(f"train {cfg.name} card vs CPU: loss {l_card} / {l_cpu}, "
+             f"grad_norm {n_card} / {n_cpu}")
+    worst = 0.0
+    for path, want in g_cpu.items():
+        got = g_card[path]
+        if not bool(torch.isfinite(got).all()):
+            fail(f"train {cfg.name} card gradient {path} not finite")
+        err, scale = lm_max_err(got, want)
+        if not err <= TRAIN_GRAD_LIMIT * scale:
+            fail(f"train {cfg.name} card vs CPU gradient {path}: max|Δ| "
+                 f"{err} over {TRAIN_GRAD_LIMIT}·{scale}")
+        worst = max(worst, err / scale)
+    return {"batch": [TRAIN_CPU_BATCH, TRAIN_CPU_SEQ], "loss": [l_card,
+            l_cpu], "grad_norm": [n_card, n_cpu], "loss_rel_err": loss_err,
+            "grad_norm_rel_err": norm_err, "leaves_held": len(g_cpu),
+            "grad_max_rel_err": worst, "seconds": time.perf_counter() - t0}
+
+
+def train_checkpoint(cfg, params, opt, tmp: str) -> dict:
+    """(e): save (a)'s params and optimizer state asynchronously, take a
+    step (AdamW writes in place), restore into a template on the card:
+    every leaf equals the saved one bit for bit.  Then one step (b's
+    batch) from the restored state against the same step from the
+    in-memory state, run twice: with deterministic algorithms the two
+    in-memory runs agree bit for bit, and then so must the restored one;
+    otherwise it must be within 4x their distance."""
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves
+    step_fn = api.make_train_step(cfg, TrainConfig(
+        lr=1e-3, warmup=1, total_steps=30, grad_dtype="bfloat16"))
+    batch = train_batch(cfg, TRAIN_MEM_BATCH, TRAIN_MEM_SEQ, seed=3)
+    state = {"params": params, "opt": opt}
+    snap = train_tree_clone(state)
+    ck = Checkpointer(tmp)
+    t0 = time.perf_counter()
+    ck.save(7, state, meta={"step": 7})
+    save_call_s = time.perf_counter() - t0
+    params, opt, _ = step_fn(params, opt, batch, 7)      # in place
+    torch.cuda.synchronize()
+    ck.wait()
+    written_s = time.perf_counter() - t0
+    del params, opt, state
+    t0 = time.perf_counter()
+    restored, meta = ck.restore(template=snap, device=DEVICE)
+    restore_s = time.perf_counter() - t0
+    want = dict(tree_leaves(snap))
+    n_bytes = 0
+    for path, t in tree_leaves(restored):
+        w = want[path]
+        if t.dtype != w.dtype or t.device != w.device or not torch.equal(
+                train_bits(t), train_bits(w)):
+            fail(f"train checkpoint {path}: restored leaf differs")
+        n_bytes += t.numel() * t.element_size()
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for state in (train_tree_clone(snap), snap, restored):
+            p, o, m = step_fn(state["params"], state["opt"], batch, 8)
+            runs.append(({"params": p, "opt": o},
+                         {k: float(v) for k, v in m.items()}))
+            del p, o, state
+    finally:
+        torch.use_deterministic_algorithms(det)
+    (a, ma), (b, mb), (r, mr) = runs
+    twice_equal = train_tree_equal(b, a) and ma == mb
+    restored_equal = train_tree_equal(r, a) and ma == mr
+    noise, dist = train_tree_diff(b, a), train_tree_diff(r, a)
+    if not (restored_equal if twice_equal else dist <= 4 * noise):
+        fail(f"train checkpoint: the restored state's step is {dist} from "
+             f"the in-memory one's (two in-memory runs: {noise}, bit for "
+             f"bit {twice_equal})")
+    return {"meta": meta, "leaves": len(want), "gb": n_bytes / 1e9,
+            "save_call_s": save_call_s, "written_s": written_s,
+            "restore_s": restore_s, "restored_bit_for_bit": True,
+            "step_in_memory_twice_bit_for_bit": twice_equal,
+            "step_restored_bit_for_bit": restored_equal,
+            "step_in_memory_twice_max_rel": noise,
+            "step_restored_max_rel": dist, "metrics": [ma, mb, mr]}
+
+
+def train_config_step(name: str, cfg) -> dict:
+    """(d): one step of cfg (microbatch 2, fp32 gradients through the
+    cast) over TRAIN_D_BATCH x TRAIN_D_SEQ tokens: finite loss and
+    parameters that moved."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    before = train_tree_clone(params)
+    step_fn = api.make_train_step(cfg, TrainConfig(
+        microbatch=2, grad_dtype="float32", warmup=2, total_steps=10))
+    batch = train_batch(cfg, TRAIN_D_BATCH, TRAIN_D_SEQ)
+    t1 = time.perf_counter()
+    params, _, m = step_fn(params, adamw_init(params), batch, 2)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    rec = {k: float(v) for k, v in m.items()}
+    old = dict(tree_leaves(before))
+    moved = sum(float((p - old[k]).abs().sum())
+                for k, p in tree_leaves(params))
+    finite = all(bool(torch.isfinite(p).all()) for _, p in
+                 tree_leaves(params))
+    if not (math.isfinite(rec["loss"]) and moved > 0 and finite):
+        fail(f"train {name}: loss {rec['loss']}, moved {moved}, "
+             f"finite params {finite}")
+    return {"phase": "train", "case": "d", "config": name,
+            "family": cfg.family, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "params": sum(p.numel() for _, p in tree_leaves(params)),
+            "batch": [TRAIN_D_BATCH, TRAIN_D_SEQ], "metrics": rec,
+            "moved_abs_sum": moved, "step_s": step_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "seconds": time.perf_counter() - t0}
+
+
+def train_phase() -> None:
+    """The LM scaffold's training path on the card: (a) qwen2-0.5b at full
+    width and depth, bf16 over fp32 masters, 4 steps of 16 x 4,096 tokens;
+    (b) memorisation of one batch; (c) fp32 card against the CPU port and
+    matmul_f32's backward; (d) the other configs, one step each; (e) the
+    Checkpointer on the card.  No hand kernel is on this path: the phase
+    launches none."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import count_params
+    from repro_torch.optim import adamw_init
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    cfg = ARCHS[TRAIN_MODEL]
+    torch.cuda.empty_cache()
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    opt = adamw_init(params)
+    n_params = count_params(tf.model_defs(cfg))
+    t0 = time.perf_counter()
+    a, params, opt = train_qwen_steps(cfg, params, opt)
+    emit({"phase": "train", "case": "a", "config": TRAIN_MODEL,
+          "params": n_params, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, **a,
+          "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        e = train_checkpoint(cfg, params, opt, tmp)
+    del params, opt
+    emit({"phase": "train", "case": "e", "config": TRAIN_MODEL, **e,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    b = train_memorise(cfg, params)
+    c = train_card_vs_cpu(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "case": "b_c", "config": TRAIN_MODEL,
+          "memorise": b, "card_vs_cpu_fp32": c,
+          "matmul_f32_backward": train_matmul_backward(
+              cfg, TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ),
+          "op_times": train_op_times(cfg, TRAIN_BATCH // TRAIN_MICRO,
+                                     TRAIN_SEQ),
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    for name in LM_DEPTH2 + ("hubert-xlarge",):
+        dcfg = ARCHS[name]
+        dcfg = dataclasses.replace(
+            dcfg, num_layers=2 * tf.layers_per_block(dcfg),
+            **({"capacity_factor": 16.0} if dcfg.num_experts else {}))
+        emit(train_config_step(name, dcfg))
+    emit(train_config_step("llama4-maverick-400b-a17b", reduced_config(
+        ARCHS["llama4-maverick-400b-a17b"], capacity_factor=16.0)))
+    launches = launch_counts()
+    if any(launches.values()):
+        fail(f"train: the training path launched hand kernels {launches}")
+    emit({"phase": "train_summary", "hand_kernel_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=13.0,
@@ -2687,6 +3416,7 @@ def main() -> None:
     timed("parity", parity_phase, args.parity_scale)
     timed("examples", examples_phase)
     timed("lm", lm_phase)
+    timed("train", train_phase)
     emit({"phase": "seconds", "seconds": seconds,
           "total": time.perf_counter() - t_start})
 

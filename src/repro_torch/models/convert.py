@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from ..kernels.ops import resolve_device
-from .param import PD, tree_leaves
+from ..tree import tree_from_leaves, tree_leaves
+from .param import PD
 from . import transformer as tf
 
 
@@ -39,16 +40,6 @@ def _get(tree, path):
     return tree
 
 
-def _build(paths_leaves):
-    out: dict = {}
-    for path, leaf in paths_leaves:
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
-
-
 def params_from_reference(cfg, tree, device="cuda"):
     """The port's parameter tree from the reference's (numpy leaves), on
     `device` (the card unless "cpu" is asked for)."""
@@ -65,17 +56,19 @@ def params_from_reference(cfg, tree, device="cuda"):
             raise ValueError(f"{'/'.join(path)}: shape {a.shape}, "
                              f"expected {pd.shape}")
         out.append((path, _to_tensor(a, dev)))
-    return _build(out)
+    return tree_from_leaves(out)
 
 
 def cache_to_numpy(cache):
     """A decode cache as a nested dict of numpy arrays (bf16 widened to
     fp32), laid out as the reference's: copies, which later decode steps
     (writing the attention caches in place) leave as they are."""
-    return _build((path, _to_numpy(t)) for path, t in tree_leaves(cache))
+    return tree_from_leaves((path, _to_numpy(t))
+                            for path, t in tree_leaves(cache))
 
 
 def cache_from_numpy(tree, device="cuda"):
     """A decode cache from the reference's (numpy leaves) on `device`."""
     dev = resolve_device(device)
-    return _build((path, _to_tensor(a, dev)) for path, a in tree_leaves(tree))
+    return tree_from_leaves((path, _to_tensor(a, dev))
+                            for path, a in tree_leaves(tree))

@@ -9,24 +9,50 @@ B*H*S_q*kv_chunk.  All of it is plain PyTorch: the reference computes it
 in jnp, with no Pallas kernel.
 
 The reference's products with `preferred_element_type=float32` go through
-`matmul_f32`: bf16 operands, fp32 result.
+`matmul_f32`: bf16 operands, fp32 result.  `chunked_cross_entropy` is the
+training loss head: logits one sequence chunk at a time, recomputed in
+the backward pass.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 # ---------------------------------------------------------------------- #
+class _MatmulF32(torch.autograd.Function):
+    """Half operands on the card, fp32 result (torch.mm / torch.bmm with
+    out_dtype, which have no derivative of their own).  The backward is
+    the reference's transpose rule for a dot with
+    preferred_element_type=float32: the fp32 cotangent times the other
+    operand gives an fp32 product, cast to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b (2-D or batched 3-D) with an fp32 result, as jnp's
     preferred_element_type=float32: products of the operands' dtype summed
     in fp32.  On the card a bf16 product runs on the tensor cores with an
-    fp32 output; elsewhere (and for fp32 operands) the operands are
-    widened, which is exact for bf16."""
+    fp32 output (_MatmulF32); elsewhere (and for fp32 operands) the
+    operands are widened, which is exact for bf16."""
     if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
-        mm = torch.mm if a.dim() == 2 else torch.bmm
-        return mm(a, b, out_dtype=torch.float32)
+        return _MatmulF32.apply(a, b)
     return torch.matmul(a.float(), b.float())
 
 
@@ -151,3 +177,46 @@ def decode_attention(q, k_cache, v_cache, slot_positions, pos, *,
     p = torch.softmax(s, dim=-1)
     out = matmul_f32(p.to(v_cache.dtype), v_cache.reshape(b * hkv, c, hd))
     return out.reshape(b, hq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------- #
+def _ce_chunk(x, embed, labels, mask):
+    """Summed NLL and mask count of one chunk: x [B, c, D], embed [V, D],
+    labels [B, c] int64, mask [B, c] float32."""
+    b, c, d = x.shape
+    logits = matmul_f32(x.reshape(b * c, d), embed.t()).view(b, c, -1)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum(), mask.sum()
+
+
+def chunked_cross_entropy(x, embed, labels, *, chunk=512, mask=None):
+    """Next-token CE without materializing [B, S, V] logits.
+
+    x [B, S, D]; embed [V, D]; labels [B, S] int; mask [B, S] optional.
+    Walks sequence chunks; where autograd records, each chunk is
+    checkpointed, so its [B, chunk, V] fp32 logits are recomputed in the
+    backward pass and never kept (the reference: jax.checkpoint on the
+    scan body).  Returns sum(nll·mask) / max(sum(mask), 1).
+    """
+    b, s, d = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    labels = labels.long()
+    mask = (torch.ones((b, s), dtype=torch.float32, device=x.device)
+            if mask is None else mask.to(torch.float32))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, chunk):
+        args = (x[:, lo:lo + chunk], embed, labels[:, lo:lo + chunk],
+                mask[:, lo:lo + chunk])
+        if torch.is_grad_enabled():
+            nll, n = checkpoint(_ce_chunk, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            nll, n = _ce_chunk(*args)
+        tot = tot + nll
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

@@ -13,6 +13,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..tree import tree_leaves, tree_map
+
 
 @dataclass(frozen=True)
 class PD:
@@ -23,24 +25,6 @@ class PD:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
-
-
-def tree_map_pd(fn, defs):
-    """fn applied to every PD leaf of a nested dict, keeping its layout."""
-    if isinstance(defs, PD):
-        return fn(defs)
-    return {k: tree_map_pd(fn, v) for k, v in defs.items()}
-
-
-def tree_leaves(tree, is_leaf=lambda x: not isinstance(x, dict)):
-    """(path, leaf) pairs of a nested dict, keys in sorted order (the
-    order in which JAX flattens a dict)."""
-    if is_leaf(tree):
-        yield (), tree
-        return
-    for k in sorted(tree):
-        for path, leaf in tree_leaves(tree[k], is_leaf):
-            yield (k,) + path, leaf
 
 
 def init_params(defs, generator: torch.Generator,
@@ -55,7 +39,7 @@ def init_params(defs, generator: torch.Generator,
             return torch.ones(pd.shape, dtype=dtype, device=device)
         return torch.randn(pd.shape, generator=generator, dtype=dtype,
                            device=device) * pd.scale
-    return tree_map_pd(make, defs)
+    return tree_map(make, defs)
 
 
 def count_params(defs) -> int:

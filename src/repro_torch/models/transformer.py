@@ -2,19 +2,22 @@
 
 One "block" covers `moe_every` layers (so interleaved-MoE models stay
 uniform); block params are stacked on a leading 'layers' dim, as in the
-reference, and the trunk is a Python loop over the stacked blocks.
+reference, and the trunk is a Python loop over the stacked blocks, with
+optional per-block remat (torch.utils.checkpoint).
 
 Entry points (all plain functions of (cfg, params, ...)):
+  loss_fn       train loss (chunked CE / masked CE for encoders)
   prefill       full-sequence forward producing decode caches + last logits
   decode_step   one token with cache/state (the serve step of decode shapes)
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .param import PD
 from .nn_ops import (matmul_f32, rms_norm, rotary, ffn, flash_attention,
-                     decode_attention)
+                     decode_attention, chunked_cross_entropy)
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
 from . import ssm as ssm_mod
@@ -123,10 +126,18 @@ def unembed_matrix(cfg, params):
     return params.get("unembed", params.get("embed"))
 
 
-def block_at(tree, i: int):
-    """Block i of a tree whose leaves are stacked on a leading dim: views."""
-    return {k: block_at(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def prefix_len(cfg) -> int:
+    return cfg.num_prefix_tokens + cfg.num_meta_tokens
+
+
+def unstack(tree, n: int) -> list:
+    """The n blocks of a tree whose leaves are stacked on a leading dim,
+    as views: one torch.unbind per leaf, whose backward is one stack.
+    (Indexing block i of every leaf would give each block's backward a
+    zero-filled gradient of the whole stacked leaf.)"""
+    leaves = {k: unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+              for k, v in tree.items()}
+    return [{k: v[i] for k, v in leaves.items()} for i in range(n)]
 
 
 def _stack(trees: list):
@@ -286,14 +297,23 @@ def embed_inputs(cfg, params, batch):
     return x
 
 
-def trunk(cfg, params, x, *, make_cache=False, cache_len=0):
+def trunk(cfg, params, x, *, remat=True, make_cache=False, cache_len=0):
     """Loop over blocks.  Returns (x, caches stacked per block, metrics
-    averaged over blocks)."""
+    averaged over blocks).  With remat, where autograd records, each block
+    is checkpointed: only its input is kept, and its activations are
+    recomputed in the backward pass (the reference: jax.checkpoint on the
+    scan body)."""
+    def body(bp, x):
+        return block_forward(cfg, bp, x, make_cache=make_cache,
+                             cache_len=cache_len)
+    remat = remat and torch.is_grad_enabled()
     caches, metrics = [], []
-    for i in range(n_blocks(cfg)):
-        x, (cache, m) = block_forward(cfg, block_at(params["blocks"], i), x,
-                                      make_cache=make_cache,
-                                      cache_len=cache_len)
+    for bp in unstack(params["blocks"], n_blocks(cfg)):
+        if remat:
+            x, (cache, m) = checkpoint(body, bp, x, use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            x, (cache, m) = body(bp, x)
         caches.append(cache)
         metrics.append(m)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -301,6 +321,31 @@ def trunk(cfg, params, x, *, make_cache=False, cache_len=0):
     metrics = ({k: torch.stack([m[k] for m in metrics]).mean()
                 for k in metrics[0]} if metrics[0] else {})
     return x, caches, metrics
+
+
+# ====================================================================== #
+# Losses
+# ====================================================================== #
+def loss_fn(cfg, params, batch, *, remat=True):
+    """Returns (loss, metrics): the chunked next-token CE over the text
+    positions (a VLM's patches and the meta tokens cut off; an encoder's
+    masked positions only, by batch["mask"]), plus 0.01·moe_aux."""
+    x = embed_inputs(cfg, params, batch)
+    x, _, metrics = trunk(cfg, params, x, remat=remat)
+    pl = prefix_len(cfg)
+    if pl:
+        x = x[:, pl:]
+    un = unembed_matrix(cfg, params).to(x.dtype)
+    labels = torch.as_tensor(batch["labels"], device=x.device)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=x.device)
+    ce = chunked_cross_entropy(x, un, labels, chunk=cfg.loss_chunk,
+                               mask=mask)
+    loss = ce
+    if "moe_aux" in metrics:
+        loss = loss + 0.01 * metrics["moe_aux"]
+    return loss, {"ce": ce, **metrics}
 
 
 # ====================================================================== #
@@ -317,7 +362,7 @@ def prefill(cfg, params, batch, *, cache_len: int = 0):
     dev = x.device
     s_total = x.shape[1]
     cache_len = cache_len or s_total
-    x, caches, _ = trunk(cfg, params, x, make_cache=True,
+    x, caches, _ = trunk(cfg, params, x, remat=False, make_cache=True,
                          cache_len=cache_len)
     un = unembed_matrix(cfg, params).to(x.dtype)
     logits = matmul_f32(x[:, -1], un.t())
@@ -444,10 +489,10 @@ def decode_step(cfg, params, cache, tokens):
                                        pos.reshape(1))
 
     states = []
-    for i in range(n_blocks(cfg)):
-        x, st = _block_step(cfg, block_at(params["blocks"], i),
-                            block_at(cache["blocks"], i), x, slot_pos, pos,
-                            slot)
+    nb = n_blocks(cfg)
+    for bp, bc in zip(unstack(params["blocks"], nb),
+                      unstack(cache["blocks"], nb)):
+        x, st = _block_step(cfg, bp, bc, x, slot_pos, pos, slot)
         states.append(st)
     blocks = dict(cache["blocks"])
     if states[0]:

@@ -809,3 +809,140 @@ def test_cuda_lm_weights_default_to_the_card(dev):
     for path, t in tree_leaves(carried):
         assert t.is_cuda and np.array_equal(t.cpu().numpy(),
                                             dict(tree_leaves(tree))[path])
+
+
+# ---------------------------------------------------------------------- #
+# LM scaffold training (repro_torch.models, optim) on the card
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("shape_a,shape_b", [
+    ((96, 64), (64, 130)), ((16, 7 * 64, 64), (16, 64, 1024)),
+    ((16, 7 * 64, 1024), (16, 1024, 64)), ((2 * 16, 128), (128, 3000))])
+def test_cuda_matmul_f32_backward_matches_widened_autograd(no_tf32, shape_a,
+                                                           shape_b):
+    """nn_ops.matmul_f32's backward on the card (bf16 operands, an fp32
+    cotangent) at the products of flash_attention (QK over a KV chunk of
+    1,024, PV) and of the loss head (x @ un.t()), against autograd of the
+    product of the operands widened to fp32: bf16 gradients within one
+    bf16 ulp of max|ref| (2^-8·max|ref|: the two fp32 sums may round
+    apart), and equal to the CPU's gradients of the same widened product
+    within the same bound."""
+    from repro_torch.models import nn_ops
+    gen = torch.Generator().manual_seed(6)
+    a = torch.randn(shape_a, generator=gen).to(torch.bfloat16)
+    b = torch.randn(shape_b, generator=gen).to(torch.bfloat16)
+    gy = torch.randn(torch.matmul(a.float(), b.float()).shape,
+                     generator=gen)
+    ac, bc = a.cuda().requires_grad_(), b.cuda().requires_grad_()
+    y = nn_ops.matmul_f32(ac, bc)
+    assert y.dtype == torch.float32 and y.grad_fn is not None
+    got = torch.autograd.grad(y, (ac, bc), gy.cuda())
+    want_card = torch.autograd.grad(torch.matmul(ac.float(), bc.float()),
+                                    (ac, bc), gy.cuda())
+    acpu, bcpu = a.clone().requires_grad_(), b.clone().requires_grad_()
+    want_cpu = torch.autograd.grad(nn_ops.matmul_f32(acpu, bcpu),
+                                   (acpu, bcpu), gy)
+    for g, wc, wh in zip(got, want_card, want_cpu):
+        assert g.dtype == torch.bfloat16 and g.is_cuda
+        for w in (wc.cpu(), wh):
+            scale = float(w.float().abs().max())
+            err = float((g.cpu().float() - w.float()).abs().max())
+            assert err <= 2.0 ** -8 * scale, (err, scale)
+
+
+def _train_step_card_and_cpu(cfg, grad_dtype):
+    """One make_train_step (microbatch 2, at step 2 of a warm-up of 2) and
+    the loss's gradients as the step takes them (with grad_dtype
+    "bfloat16" wrt the copies in the activation dtype, else through the
+    cast of the masters), on the card and on the CPU with the same
+    weights: {"cpu": (metrics, grads), "cuda": (metrics, grads)}."""
+    from repro_torch.configs import InputShape
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import api, convert
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_from_leaves, tree_leaves
+    cpu = api.init_model(cfg, 0, device="cpu")
+    card = convert.params_from_reference(cfg, convert.cache_to_numpy(cpu))
+    batch = api.concrete_batch(cfg, InputShape("t", 64, 2, "train"), seed=1)
+    tcfg = TrainConfig(microbatch=2, total_steps=10, warmup=2,
+                       grad_dtype=grad_dtype)
+    out = {}
+    for where, params in (("cpu", cpu), ("cuda", card)):
+        if grad_dtype == "bfloat16":
+            wrt = {p: x.detach().to(tf.cfg_dtype(cfg)).requires_grad_()
+                   for p, x in tree_leaves(params)}
+            loss, _ = tf.loss_fn(cfg, tree_from_leaves(wrt), batch)
+        else:
+            wrt = {p: x.detach().requires_grad_()
+                   for p, x in tree_leaves(params)}
+            loss, _ = api.make_loss_fn(cfg)(tree_from_leaves(wrt), batch)
+        grads = dict(zip(wrt, torch.autograd.grad(loss, list(wrt.values()))))
+        _, _, metrics = api.make_train_step(cfg, tcfg)(
+            params, adamw_init(params), batch, 2)
+        assert metrics["loss"].device == params["final_norm"].device
+        out[where] = ({k: float(v) for k, v in metrics.items()},
+                      {p: g.cpu() for p, g in grads.items()})
+    return out
+
+
+@pytest.mark.parametrize("name", LM_NAMES)
+def test_cuda_lm_train_step_matches_cpu(no_tf32, name):
+    """An fp32 train step of every config at reduced_config (TF32 off), on
+    the card against the CPU with the same weights: loss and metrics
+    within 1e-5 relative, grad_norm within 1e-4, lr equal, and every
+    gradient of the loss within 1e-4·max|cpu leaf|."""
+    from repro_torch.configs import ARCHS, reduced_config
+    runs = _train_step_card_and_cpu(reduced_config(ARCHS[name]), "float32")
+    (mc, gc), (mg, gg) = runs["cpu"], runs["cuda"]
+    assert set(mc) == set(mg) and mg["lr"] == mc["lr"]
+    for k, v in mc.items():
+        rel = 1e-4 if k == "grad_norm" else 1e-5
+        assert abs(mg[k] - v) <= rel * max(abs(v), 1.0), (k, mg[k], v)
+    for path, w in gc.items():
+        err = float((gg[path] - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (path, err)
+
+
+@pytest.mark.parametrize("grad_dtype", ["bfloat16", "float32"])
+def test_cuda_lm_bf16_train_step_is_finite(dev, grad_dtype):
+    """qwen2 at reduced_config in bf16 over fp32 masters on the card: the
+    loss, grad_norm and every gradient finite, gradients in bf16 under
+    grad_dtype "bfloat16" (matmul_f32's backward on the card), and the
+    loss and grad_norm within 2e-2 and 5e-2 of the CPU's (bf16 rounding
+    in different orders)."""
+    from repro_torch.configs import ARCHS, reduced_config
+    cfg = reduced_config(ARCHS["qwen2-0.5b"], dtype="bfloat16")
+    runs = _train_step_card_and_cpu(cfg, grad_dtype)
+    (mc, _), (mg, gg) = runs["cpu"], runs["cuda"]
+    for k in ("loss", "grad_norm"):
+        assert np.isfinite(mg[k])
+    assert abs(mg["loss"] - mc["loss"]) <= 2e-2 * abs(mc["loss"])
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 5e-2 * mc["grad_norm"]
+    want = torch.bfloat16 if grad_dtype == "bfloat16" else torch.float32
+    for path, g in gg.items():
+        assert g.dtype == want and bool(torch.isfinite(g).all()), path
+
+
+def test_cuda_checkpoint_restore_defaults_to_the_card(dev, tmp_path):
+    """Checkpointer.restore without device= puts every leaf on the card,
+    bit for bit as saved (fp32, bf16 and int32 leaves), so a resume that
+    leaves device= out trains there."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = {"params": {"w": torch.randn(5, 6, generator=gen, device=dev),
+                    "h": torch.randn(7, generator=gen, device=dev).to(
+                        torch.bfloat16)},
+         "opt": {"step": torch.tensor(3, dtype=torch.int32, device=dev)}}
+    ck = Checkpointer(tmp_path)
+    ck.save(2, t)
+    ck.wait()
+    out, _ = ck.restore(template=t)
+    want = dict(tree_leaves(t))
+    for path, x in tree_leaves(out):
+        w = want[path]
+        assert x.device.type == "cuda" and x.dtype == w.dtype, path
+        views = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        if x.dtype in views:
+            x, w = x.view(views[x.dtype]), w.view(views[w.dtype])
+        assert torch.equal(x, w), path

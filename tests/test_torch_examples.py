@@ -1,5 +1,6 @@
 """The port's example drivers (``repro_torch.examples``) on the CPU at a
-small scale, held to the reference library's run of the same queries.
+small scale, held to the reference library's run of the same queries
+(train_lm: a resumed run against an uninterrupted one).
 
 Each driver function runs the port on the CPU and returns what it
 counted; the test runs the same graphs, templates and streams through
@@ -15,7 +16,8 @@ import repro.core as J
 import repro.data as JD
 import repro.serve as JS
 from repro.testing import Fault as JFault, FaultInjector as JInjector
-from repro_torch.examples import quickstart, rdf_scenario, serve_queries
+from repro_torch.examples import (quickstart, rdf_scenario, serve_queries,
+                                  train_lm)
 
 SCALE = 0.02
 
@@ -155,7 +157,27 @@ def test_serve_queries_governed_chaos_delta_snapshot(tmp_path):
         "matches": [r.count for r in replay]}
 
 
-@pytest.mark.parametrize("module", [quickstart, rdf_scenario, serve_queries])
+def test_train_lm_resume_ends_where_an_uninterrupted_run_ends(tmp_path):
+    """train_lm on the CPU: steps 0-8 with a checkpoint every 3 (after
+    steps 3 and 6), then the same run again with --resume, which restores
+    step 6 (the parameters and the AdamW state) and takes steps 7 and 8:
+    its final loss is the uninterrupted run's, exactly (the CPU's
+    arithmetic is deterministic)."""
+    argv = ["--device", "cpu", "--arch", "qwen2-0.5b", "--steps", "9",
+            "--seq", "32", "--batch", "4", "--ckpt-every", "3",
+            "--ckpt-dir", str(tmp_path)]
+    full = train_lm.main(argv)
+    assert full["start"] == 0 and full["resumed_from"] is None
+    assert full["checkpoints"] == [3, 6]
+    assert np.isfinite(full["final_loss"])
+    resumed = train_lm.main(argv + ["--resume"])
+    assert resumed["resumed_from"] == 6 and resumed["start"] == 7
+    assert resumed["final_loss"] == full["final_loss"]
+    assert resumed["checkpoints"] == [3, 6]
+
+
+@pytest.mark.parametrize("module", [quickstart, rdf_scenario, serve_queries,
+                                    train_lm])
 def test_drivers_default_to_the_card(module):
     """--device defaults to the card: without CUDA a driver raises before
     it answers anything on the CPU."""
