@@ -189,6 +189,49 @@ exits non-zero without its final line:
             step from the restored state equal to the same step from the
             in-memory state as closely as two in-memory runs of it are
             (deterministic algorithms on: bit for bit where they are)
+  mesh      the LM scaffold's mesh path (repro_torch.launch.mesh,
+            models.api with mesh=, runtime.elastic; DTensor, no hand
+            kernel: the phase fails if one launches) over an NCCL world
+            of one rank on make_local_mesh(), qwen2-0.5b at full width
+            and depth placed by reshard(..., model_pspecs): the train
+            phase's step (16 x 4,096, microbatch 4, bf16 gradients,
+            remat) through make_train_step(cfg, tcfg, mesh) against the
+            unmeshed step from the same state and batch (loss 1e-4 and
+            grad_norm 1e-3 relative, every parameter within 4·lr, each
+            leaf's update p - p0 within 0.5 of the unmeshed one's norm
+            (a lost update reads 1), AdamW's m and v within 4 bf16 ulps
+            of each leaf's max), a
+            second meshed step timed with its peak memory; elastic: a
+            checkpoint of the meshed state, a step on one microbatch's
+            rows, run_with_retries over that step whose first attempt
+            raises, on_failure restoring the checkpoint with
+            restore(shardings=), the replayed loss within 1e-4 of the
+            original.  Before the train step a prefill of 8 x 2,048
+            and 4 decode steps
+            through the meshed functions against the unmeshed ones
+            (1e-2·max(1, max|ref|)); each timed beside the unmeshed
+  dryrun    repro_torch.launch.dryrun on the host (a fake process group,
+            meta DTensors): (1) qwen2-0.5b at the mesh phase's step on
+            a (1, 1) mesh, its counted FLOPs within 2 % of train_flops'
+            step_flop_remat, and that formula within 2 % of the
+            products a 1 x 4,096 step of qwen2-0.5b cut to 4 blocks
+            ran on the card (torch.profiler's
+            aten::mm / aten::bmm calls that launched a kernel, with
+            their shapes), its
+            predicted peak beside the mesh step's measured one and its
+            roofline time beside the measured step;
+            (2) qwen2-0.5b and llama4-maverick-400b-a17b train_4k on the
+            (16, 16) production mesh at full width, each ok, with peak
+            GiB, FLOPs, collectives by kind and the roofline's terms
+            (traced by `python -m repro_torch.launch.dryrun` in processes
+            of their own at the lowest priority, started before the
+            train phase, whose steps the card runs meanwhile: they need
+            the host only, and they are done before the mesh phase); (3) the RDF-h check cell on that mesh (traced
+            likewise), and one device's shard
+            of it on the card (262,144 x 256 ids, J = 8) through the
+            interval_count entry of interval_count.cu, exactly equal to
+            its plain version: the kernel row interval_count_rdfh_shard,
+            beside the cell's memory term
   seconds   each phase's wall seconds
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
@@ -202,6 +245,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2683,10 +2727,14 @@ def train_flops(cfg, b: int, s: int) -> dict:
     per-chunk remat: the forward F (every block weight's product, the
     attention's causal rectangle masked, not skipped, over KV chunks of
     1,024, and the loss head's logits), again in the recompute, and twice
-    in the backward pass: 4F.  The work the step needs is 3F' (no
-    recompute; F' with attention over the causal triangle's s(s+1)/2
-    query-key pairs only).  Model FLOPs are 6·N·D (N every parameter, D
-    the tokens)."""
+    in the backward pass: step_flop, 4F.  The recompute skips each
+    block's last product (the FFN's w2): torch.utils.checkpoint stops
+    recomputing once every tensor the backward pass needs is back, and
+    that product's output is needed by none, so the step runs
+    step_flop_remat, 4F less those products (dryrun_card_flops counts
+    them on the card).  The work the step needs is 3F' (no recompute; F'
+    with attention over the causal triangle's s(s+1)/2 query-key pairs
+    only).  Model FLOPs are 6·N·D (N every parameter, D the tokens)."""
     from repro_torch.models import transformer as tf
     from repro_torch.models.param import count_params
     t = b * s
@@ -2698,9 +2746,11 @@ def train_flops(cfg, b: int, s: int) -> dict:
         * cfg.num_layers
     fwd = 2 * blocks * t + attn + head
     n = count_params(tf.model_defs(cfg))
+    skipped = 2 * t * cfg.d_ff * cfg.d_model * cfg.num_layers
     return {"forward_flop": fwd, "attention_flop": attn,
             "attention_causal_flop": causal, "head_flop": head,
-            "step_flop": 4 * fwd,
+            "recompute_skipped_flop": skipped, "step_flop": 4 * fwd,
+            "step_flop_remat": 4 * fwd - skipped,
             "needed_step_flop": 3 * (2 * blocks * t + causal + head),
             "model_flop": 6 * n * t}
 
@@ -3328,6 +3378,557 @@ def train_phase() -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------- #
+# mesh: the LM scaffold's mesh path (DeviceMesh, DTensor steps, elastic
+# recovery) on the card, over an NCCL world of one rank
+# ---------------------------------------------------------------------- #
+MESH_MODEL = "qwen2-0.5b"                # full width and depth
+MESH_PREFILL, MESH_DECODE_STEPS = (8, 2048), 4
+# the meshed step against the unmeshed one on a (1, 1) mesh: the same
+# kernels but for the loss head's logsumexp (max, exp, sum, log: the
+# vocab-sharded form) and the lookups; bf16 activations and gradients
+MESH_LOSS_LIMIT = 1e-4          # relative to the loss
+MESH_NORM_LIMIT = 1e-3          # relative to grad_norm
+# AdamW's moments after two steps of bf16 gradients, relative to max|ref
+# leaf|: 4 bf16 ulps (2^-7 relative each).  A leaf whose gradient sums
+# several bf16 contributions (the tied embedding: its lookups' and the
+# loss head's) sums them in another order on the two paths.
+MESH_MOMENT_LIMIT = 4 * 2.0 ** -7
+# the step's update p - p0 against the unmeshed one, per leaf,
+# |p_m - p_u| / |p_u - p0| in L2: 0 where they agree, 1 where the meshed
+# update is lost.  AdamW's first step moves an element by about
+# lr·sign(g), and each element whose bf16 g is near 0 and takes the other
+# sign adds to it (tests/test_torch_mesh_train.py: the reference's own
+# sharded bf16 step reads 0.19 against its single-device step)
+MESH_UPDATE_LIMIT = 0.5
+MESH_LOGIT_LIMIT = 1e-2         # prefill / decode: relative to max(1, |ref|)
+MESH_REPLAY_LIMIT = 1e-4        # the elastic replay's loss (the reference's)
+
+
+def mesh_tree_err(got, want) -> float:
+    """max over leaves of max|got - want| (got may hold DTensors)."""
+    from repro_torch.tree import tree_leaves
+    g = dict(tree_leaves(got))
+    worst = 0.0
+    for path, w in tree_leaves(want):
+        x = g[path]
+        x = x.full_tensor() if hasattr(x, "full_tensor") else x
+        if w.numel():
+            worst = max(worst, float((x.float() - w.float()).abs().max()))
+    return worst
+
+
+def mesh_rel_err(got, want) -> tuple:
+    """(max over leaves of max|got - want| / max|want|, the leaf's path);
+    0-size and all-zero leaves skipped."""
+    from repro_torch.tree import tree_leaves
+    g = dict(tree_leaves(got))
+    worst = (0.0, None)
+    for path, w in tree_leaves(want):
+        x = g[path]
+        x = x.full_tensor() if hasattr(x, "full_tensor") else x
+        scale = float(w.float().abs().max()) if w.numel() else 0.0
+        if scale:
+            err = float((x.float() - w.float()).abs().max()) / scale
+            worst = max(worst, (err, "/".join(path)), key=lambda e: e[0])
+    return worst
+
+
+def mesh_update_err(got, want, p0) -> tuple:
+    """(max over leaves of |got - want| / |want - p0| in L2, the leaf's
+    path): how far got's update from p0 lies from want's."""
+    from repro_torch.tree import tree_leaves
+    g, z = dict(tree_leaves(got)), dict(tree_leaves(p0))
+    worst = (0.0, None)
+    for path, w in tree_leaves(want):
+        x = g[path]
+        x = x.full_tensor() if hasattr(x, "full_tensor") else x
+        step = float((w.float() - z[path].float()).norm())
+        if step:
+            err = float((x.float() - w.float()).norm()) / step
+            worst = max(worst, (err, "/".join(path)), key=lambda e: e[0])
+    return worst
+
+
+def mesh_step(step_fn, params, opt, batch, i):
+    """One step, timed on the host clock between synchronizes: (params,
+    opt, metrics as floats, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = step_fn(params, opt, batch, i)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec = {k: float(v.full_tensor() if hasattr(v, "full_tensor") else v)
+           for k, v in m.items()}
+    if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+        fail(f"mesh: step {i} loss or grad_norm not finite ({rec})")
+    return params, opt, rec, dt
+
+
+def mesh_train(cfg, mesh, tcfg, tmp: str) -> dict:
+    """The meshed train step against the unmeshed one from the same
+    state and batch (every leaf), a second meshed step timed with its
+    peak memory, and the elastic recovery: a checkpoint of the meshed
+    state, a step on one microbatch's rows, then run_with_retries over
+    that step whose first attempt raises, on_failure restoring the
+    checkpoint with restore(shardings=), and the replayed loss against
+    the original.  Steps are numbered from 1 (the cosine schedule's lr
+    is 0 at step 0)."""
+    import dataclasses
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import InputShape
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import reshard, run_with_retries
+    from repro_torch.tree import tree_map
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    opt = adamw_init(params)
+    p_specs = api.model_pspecs(cfg, mesh)
+    o_specs = api.opt_pspecs(cfg, mesh)
+    p_m = reshard(train_tree_clone(params), mesh, p_specs)
+    o_m = reshard(train_tree_clone(opt), mesh, o_specs)
+    rows = TRAIN_BATCH // TRAIN_MICRO
+
+    def batch_at(i, meshed, n=TRAIN_BATCH):
+        b = {k: torch.as_tensor(v[:n], device=DEVICE)
+             for k, v in pipe.global_batch_at(i).items()}
+        if not meshed:
+            return b
+        shape = InputShape("t", TRAIN_SEQ, n, "train")
+        return reshard(b, mesh, api.batch_pspecs(cfg, shape, mesh))
+    step_u = api.make_train_step(cfg, tcfg)
+    step_m = api.make_train_step(cfg, tcfg, mesh)
+    out = {"batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatch": tcfg.microbatch,
+           "grad_dtype": tcfg.grad_dtype}
+    p0 = train_tree_clone(params)
+    params, opt, m_u, out["unmeshed_step_s"] = mesh_step(
+        step_u, params, opt, batch_at(1, False), 1)
+    p_m, o_m, m_m, out["meshed_first_step_s"] = mesh_step(
+        step_m, p_m, o_m, batch_at(1, True), 1)
+    out.update({
+        "unmeshed": m_u, "meshed": m_m,
+        "loss_rel_err": abs(m_m["loss"] - m_u["loss"]) / abs(m_u["loss"]),
+        "grad_norm_rel_err": abs(m_m["grad_norm"] - m_u["grad_norm"])
+        / m_u["grad_norm"],
+        "param_max_abs_err": mesh_tree_err(p_m, params),
+        "param_limit": 4 * m_u["lr"],
+        "update_rel_err": mesh_update_err(p_m, params, p0),
+        "m_rel_err": mesh_rel_err(o_m["m"], opt["m"]),
+        "v_rel_err": mesh_rel_err(o_m["v"], opt["v"])})
+    if out["loss_rel_err"] > MESH_LOSS_LIMIT \
+            or out["grad_norm_rel_err"] > MESH_NORM_LIMIT \
+            or out["param_max_abs_err"] > out["param_limit"] \
+            or out["update_rel_err"][0] > MESH_UPDATE_LIMIT \
+            or out["m_rel_err"][0] > MESH_MOMENT_LIMIT \
+            or out["v_rel_err"][0] > MESH_MOMENT_LIMIT:
+        fail(f"mesh: the meshed train step differs from the unmeshed "
+             f"one ({out})")
+    del params, opt, p0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p_m, o_m, m_2, out["meshed_step_s"] = mesh_step(
+        step_m, p_m, o_m, batch_at(2, True), 2)
+    out["meshed_step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # elastic, on one microbatch's rows as a step of its own
+    step_r = api.make_train_step(
+        cfg, dataclasses.replace(tcfg, microbatch=1), mesh)
+    ck = Checkpointer(tmp)
+    ck.save(3, {"params": p_m, "opt": o_m}, meta={"step": 3}, async_=False)
+    p_m, o_m, m_3, _ = mesh_step(step_r, p_m, o_m, batch_at(3, True, rows),
+                                 3)
+    template = {"params": p_m, "opt": o_m}
+    shardings = {"params": tree_map(lambda s: (mesh, s), p_specs),
+                 "opt": tree_map(lambda s: (mesh, s), o_specs)}
+    state = {"params": p_m, "opt": o_m}
+    attempts = {"n": 0, "restored": 0}
+
+    def attempt():
+        attempts["n"] += 1
+        if attempts["n"] == 1:
+            raise RuntimeError("simulated loss of the step's devices")
+        return mesh_step(step_r, state["params"], state["opt"],
+                         batch_at(3, True, rows), 3)
+
+    def on_failure(_):
+        restored, meta = ck.restore(template=template, shardings=shardings)
+        state.update(restored)
+        attempts["restored"] = meta["step"]
+    t0 = time.perf_counter()
+    _, _, m_r, _ = run_with_retries(attempt, on_failure=on_failure)
+    placed = state["params"]["final_norm"]
+    out["elastic"] = {"batch": [rows, TRAIN_SEQ], "attempts": attempts["n"],
+                      "restored_step": attempts["restored"],
+                      "orig_loss": m_3["loss"], "replay_loss": m_r["loss"],
+                      "restored_placements": str(placed.placements),
+                      "seconds": time.perf_counter() - t0}
+    if attempts["n"] != 2 or \
+            abs(m_r["loss"] - m_3["loss"]) > MESH_REPLAY_LIMIT:
+        fail(f"mesh: the elastic replay differs ({out['elastic']})")
+    return out
+
+
+def mesh_serve(cfg, mesh) -> dict:
+    """Prefill of MESH_PREFILL and MESH_DECODE_STEPS greedy decode steps
+    through the meshed functions against the unmeshed ones on the same
+    weights, each timed: each prefill after a warm-up call, decode's
+    per-step time over the steps after the first."""
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.models import api
+    from repro_torch.runtime import reshard
+    b, s = MESH_PREFILL
+    shape = InputShape("p", s, b, "prefill")
+    cache_len = s + MESH_DECODE_STEPS
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    p_m = reshard(params, mesh, api.model_pspecs(cfg, mesh))
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+             api.concrete_batch(cfg, shape, seed=3).items()}
+    b_m = reshard(batch, mesh, api.batch_pspecs(cfg, shape, mesh))
+    out = {"prefill": [b, s], "decode_steps": MESH_DECODE_STEPS,
+           "errs": []}
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    def err(got, want):
+        g = got.full_tensor() if hasattr(got, "full_tensor") else got
+        return float((g - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+    with torch.no_grad():
+        pre_u = api.make_prefill_fn(cfg, cache_len=cache_len)
+        pre_m = api.make_prefill_fn(cfg, mesh, cache_len=cache_len)
+        timed(pre_u, params, batch)             # warm-ups
+        timed(pre_m, p_m, b_m)
+        (l_u, c_u), out["unmeshed_prefill_s"] = timed(pre_u, params, batch)
+        (l_m, c_m), out["meshed_prefill_s"] = timed(pre_m, p_m, b_m)
+        out["errs"].append(err(l_m, l_u))
+        dec_u, dec_m = api.make_decode_fn(cfg), api.make_decode_fn(cfg, mesh)
+        tok = l_u.argmax(-1)
+        t_u, t_m = [], []
+        for _ in range(MESH_DECODE_STEPS):
+            (l_u, c_u), dt = timed(dec_u, params, c_u, tok)
+            t_u.append(dt * 1e3)
+            (l_m, c_m), dt = timed(dec_m, p_m, c_m, tok)
+            t_m.append(dt * 1e3)
+            out["errs"].append(err(l_m, l_u))
+            tok = l_u.argmax(-1)
+    # the first step of each warms up; the rest are the per-step time
+    out["unmeshed_decode_first_ms"], out["meshed_decode_first_ms"] = \
+        t_u[0], t_m[0]
+    out["unmeshed_decode_ms_per_step"] = sum(t_u[1:]) / len(t_u[1:])
+    out["meshed_decode_ms_per_step"] = sum(t_m[1:]) / len(t_m[1:])
+    out["max_err"] = max(out["errs"])
+    if out["max_err"] > MESH_LOGIT_LIMIT:
+        fail(f"mesh: meshed prefill/decode differ from unmeshed ({out})")
+    return out
+
+
+def mesh_phase() -> dict:
+    """The LM scaffold's mesh path on the card: qwen2-0.5b at full width
+    and depth on make_local_mesh() over an NCCL world of one rank.  A
+    prefill and decode steps against the unmeshed ones (decode is
+    host-bound), the train phase's step (16 x 4,096, microbatch 4, bf16
+    gradients, remat) through make_train_step(cfg, tcfg, mesh) against
+    the unmeshed step, and elastic recovery from a checkpoint.  Returns
+    what the dryrun phase compares with: the meshed step's seconds and
+    peak memory."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    t_phase = time.perf_counter()
+    reset_launches()
+    cfg = ARCHS[MESH_MODEL]
+    tcfg = TrainConfig(grad_dtype="bfloat16", microbatch=TRAIN_MICRO,
+                       remat=True, warmup=2, total_steps=100)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh(device=DEVICE)
+            t0 = time.perf_counter()
+            serve = mesh_serve(cfg, mesh)
+            emit({"phase": "mesh", "case": "serve", "config": MESH_MODEL,
+                  "host": "alone", **serve,
+                  "seconds": time.perf_counter() - t0})
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            train = mesh_train(cfg, mesh, tcfg, tmp)
+            emit({"phase": "mesh", "case": "train", "config": MESH_MODEL,
+                  "mesh": list(mesh.shape), "host": "alone", **train,
+                  "seconds": time.perf_counter() - t0})
+        finally:
+            dist.destroy_process_group()
+    launches = launch_counts()
+    if any(launches.values()):
+        fail(f"mesh: the mesh path launched hand kernels {launches}")
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh_summary", "backend": "nccl", "world_size": 1,
+          "seconds": time.perf_counter() - t_phase})
+    return {"step_s": train["meshed_step_s"],
+            "peak_gb": train["meshed_step_peak_gb"]}
+
+
+# ---------------------------------------------------------------------- #
+# dryrun: repro_torch.launch.dryrun on the host, and one shard of its
+# RDF-h check cell on the card
+# ---------------------------------------------------------------------- #
+DRYRUN_FLOP_LIMIT = 0.02         # counted FLOPs against train_flops
+DRYRUN_PROD_CELLS = (("qwen2-0.5b", "train_4k"),
+                     ("llama4-maverick-400b-a17b", "train_4k"))
+DRYRUN_RDFH_CELL = ("rdfh-check-phase", "n4M_cap256")
+DRYRUN_CELL_TIMEOUT = 600        # seconds a background cell may take
+RDFH_SHARD_ROWS, RDFH_CAP, RDFH_J = (1 << 22) // 16, 256, 8
+
+
+# the profiled step: b x s, and qwen2-0.5b cut to 4 blocks (each block
+# runs the same products; a whole step's 10^5 events take ~18 s to read)
+DRYRUN_CARD_FLOPS_SHAPE, DRYRUN_CARD_FLOPS_LAYERS = (1, TRAIN_SEQ), 4
+
+
+def dryrun_card_flops(cfg, b: int, s: int) -> dict:
+    """One unmeshed train step of b x s tokens (one microbatch, bf16
+    gradients, remat) on the card under torch.profiler: the FLOPs
+    (2·m·k·n each) of the aten::mm and aten::bmm calls that launched a
+    kernel, from their recorded input shapes, against train_flops'
+    step_flop_remat (the recompute skips each block's w2 product) and
+    step_flop (4F).  A call that launched none is counted apart: the
+    recompute's last product is such a call, stopped by
+    torch.utils.checkpoint once the tensors it saves are back, before
+    its kernel runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    tcfg = TrainConfig(grad_dtype="bfloat16", microbatch=1, remat=True,
+                       warmup=2, total_steps=100)
+    params = api.init_model(cfg, seed=0, device=DEVICE)
+    opt = adamw_init(params)
+    batch = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in train_batch(cfg, b, s).items()}
+    step = api.make_train_step(cfg, tcfg)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(params, opt, batch, 1)
+        torch.cuda.synchronize()
+
+    def launched(ev) -> bool:
+        return bool(ev.kernels) or any(launched(c)
+                                       for c in ev.cpu_children)
+    flops, calls, stopped = 0, {"aten::mm": 0, "aten::bmm": 0}, 0
+    stopped_flops = 0
+    for ev in prof.events():
+        if ev.name not in calls:
+            continue
+        a, w = ev.input_shapes[:2]
+        f = 2 * math.prod(a) * w[-1]
+        if launched(ev):
+            calls[ev.name] += 1
+            flops += f
+        else:
+            stopped += 1
+            stopped_flops += f
+    del params, opt, batch, prof
+    torch.cuda.empty_cache()
+    fl = train_flops(cfg, b, s)
+    return {"batch": [b, s], "profiled_flops": flops, "calls": calls,
+            "calls_without_kernel": stopped,
+            "flops_without_kernel": stopped_flops,
+            "step_flop_remat": fl["step_flop_remat"],
+            "step_flop": fl["step_flop"],
+            "rel_err_remat": abs(flops - fl["step_flop_remat"])
+            / fl["step_flop_remat"],
+            "rel_err_4f": abs(flops - fl["step_flop"]) / fl["step_flop"]}
+
+
+def dryrun_local(measured: dict) -> dict:
+    """qwen2-0.5b train_4k on a (1, 1) mesh, at the step the mesh phase
+    ran (16 x 4,096, microbatch 4, bf16 gradients): the counted FLOPs
+    against train_flops' step_flop_remat, and that formula against the
+    products a step profiled on the card ran (dryrun_card_flops); the
+    predicted peak against the measured one, the roofline time against
+    the measured step."""
+    import dataclasses
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import ARCHS, InputShape
+    from repro_torch.launch import dryrun, roofline
+    cfg = ARCHS[MESH_MODEL]
+    shape = InputShape("train_4k_cut", TRAIN_SEQ, TRAIN_BATCH, "train")
+    st = dict(dryrun.cell_settings(MESH_MODEL), microbatch=TRAIN_MICRO,
+              grad_dtype="bfloat16")
+    with dryrun.fake_world(1):
+        mesh = DeviceMesh("cpu", torch.zeros((1, 1), dtype=torch.int64),
+                          mesh_dim_names=("data", "model"))
+        fn, args = dryrun.lower_cell(MESH_MODEL, None, mesh, cfg=cfg,
+                                     shape=shape, settings=st)
+        sec, memory, a = dryrun.trace(fn, args, True)
+    want = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)["step_flop_remat"]
+    rec = dryrun.record({"mesh": "single", "model_flops": 0.0}, sec,
+                        memory, a)
+    card = dryrun_card_flops(
+        dataclasses.replace(cfg, num_layers=DRYRUN_CARD_FLOPS_LAYERS),
+        *DRYRUN_CARD_FLOPS_SHAPE)
+    t = roofline.terms(rec)
+    out = {"cell": f"{MESH_MODEL} train_4k cut to {TRAIN_BATCH} x "
+                   f"{TRAIN_SEQ}, mesh (1, 1)", "trace_s": sec,
+           "flops": a["flops"], "train_flops_step_flop_remat": want,
+           "flops_rel_err": abs(a["flops"] - want) / want,
+           "predicted_peak_gb": memory["peak_estimate_bytes"] / 1e9,
+           "measured_peak_gb": measured["peak_gb"],
+           "roofline_s": max(t["compute_s"], t["mem_min_s"], t["coll_s"]),
+           "roofline_terms": {k: t[k] for k in ("compute_s", "mem_min_s",
+                                                "mem_max_s", "coll_s")},
+           "measured_step_s": measured["step_s"],
+           "collectives": a["collectives"], "ops": a["ops"],
+           "card_profiled": card}
+    if out["flops_rel_err"] > DRYRUN_FLOP_LIMIT:
+        fail(f"dryrun: counted FLOPs {a['flops']:.4g} against train_flops "
+             f"{want:.4g} ({out['flops_rel_err']:.3%})")
+    if card["rel_err_remat"] > DRYRUN_FLOP_LIMIT:
+        fail(f"dryrun: the card's profiled step FLOPs differ from "
+             f"train_flops' step_flop_remat ({card})")
+    return out
+
+
+def dryrun_rdfh_shard(rows: list, cell: dict) -> tuple:
+    """One device's shard of the RDF-h check cell on the card: 262,144 x
+    256 ids (rows ascending, -1 padding at the tail) and 8 intervals
+    through ops.interval_count (csrc/interval_count.cu), held to its plain
+    version exactly, as the kernel row interval_count_rdfh_shard."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import roofline
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    n, cap, j = RDFH_SHARD_ROWS, RDFH_CAP, RDFH_J
+    ids = torch.randint(0, 1 << 22, (n, cap), generator=gen, device=DEVICE,
+                        dtype=torch.int32).sort(dim=1).values
+    lens = torch.randint(0, cap + 1, (n, 1), generator=gen, device=DEVICE)
+    ids = torch.where(torch.arange(cap, device=DEVICE) < lens, ids, -1)
+    lo = torch.randint(0, 1 << 21, (j,), generator=gen, device=DEVICE,
+                       dtype=torch.int32)
+    hi = lo + torch.randint(1, 1 << 21, (j,), generator=gen, device=DEVICE,
+                            dtype=torch.int32)
+    reset_launches()
+    got = ops.interval_count(ids, lo, hi)
+    torch.cuda.synchronize()
+    launched = dict(ops.cuda_kernels()["interval_count"].entry_launches)
+    if launched.get("interval_count", 0) == 0:
+        fail("dryrun: the RDF-h shard launched no interval_count entry")
+    want = ref.interval_count_ref(ids, lo, hi)
+    row = record_row(
+        rows, "interval_count_rdfh_shard", "interval_count.cu",
+        "src/repro/kernels/interval_count.py:58",
+        lambda: ops.interval_count(ids, lo, hi),
+        lambda: ref.interval_count_ref(ids, lo, hi), None,
+        4 * n * cap + 4 * n * j + 8 * j,
+        2 * j * n * math.ceil(math.log2(cap + 1)), (got,), (want,),
+        counter="interval_count_rdfh")
+    row["shape"] = {"rows": n, "cap": cap, "intervals": j}
+    t = roofline.terms({**cell, "model_flops": 0.0})
+    out = {"rows": n, "cap": cap, "intervals": j,
+           "ids_mb": ids.numel() * 4 / 1e6, "launches": launched,
+           "kernel_ms": row["ms"], "bound_ms": row["bound_ms"],
+           "plain_ms": row["plain_ms"],
+           "dryrun_memory_term_ms": [t["mem_min_s"] * 1e3,
+                                     t["mem_max_s"] * 1e3],
+           "dryrun_peak_gib": t["peak_gib"]}
+    del ids, got, want
+    torch.cuda.empty_cache()
+    return out, launched["interval_count"]
+
+
+def dryrun_start(tmp: str) -> list:
+    """The production cells and the RDF-h cell, each traced by
+    `python -m repro_torch.launch.dryrun` in a process of its own on the
+    host at the lowest priority, started before the train phase so that
+    they trace while the card runs its steps (they use the host alone;
+    the mesh phase's host-bound prefill and decode come after them)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, shape in DRYRUN_PROD_CELLS + (DRYRUN_RDFH_CELL,):
+        out = os.path.join(tmp, f"{arch}_{shape}.json")
+        procs.append(((arch, shape), out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", out],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            env=env, preexec_fn=lambda: os.nice(19))))
+    return procs
+
+
+def dryrun_collect(procs) -> dict:
+    """{(arch, shape): record} of dryrun_start's cells, each ok, or fail."""
+    recs = {}
+    for cell, out, proc in procs:
+        try:
+            _, err = proc.communicate(timeout=DRYRUN_CELL_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail(f"dryrun: {cell} ran past {DRYRUN_CELL_TIMEOUT} s")
+        if proc.returncode or not os.path.exists(out):
+            fail(f"dryrun: {cell} exited with {proc.returncode}: "
+                 f"{err[-2000:]}")
+        rec = json.loads(open(out).read())["|".join(cell + ("single",))]
+        if rec["status"] != "ok":
+            fail(f"dryrun: {cell} {rec['error']}\n{rec['traceback']}")
+        recs[cell] = rec
+    return recs
+
+
+def dryrun_phase(rows: list, measured: dict, recs: dict) -> int:
+    """The port's dry-run (repro_torch.launch.dryrun) on the host: (1)
+    qwen2-0.5b at the mesh phase's step on a (1, 1) mesh against the card
+    (FLOPs within 2 % of train_flops); (2) qwen2-0.5b and
+    llama4-maverick-400b-a17b train_4k on the (16, 16) production mesh
+    at full width, each cell ok (`recs`: dryrun_collect's records of
+    dryrun_start's processes);
+    (3) the RDF-h check cell on that mesh, and one device's shard of it
+    run on the card (the kernel row interval_count_rdfh_shard).  Returns
+    that run's interval_count launches."""
+    from repro_torch.launch import roofline
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    local = dryrun_local(measured)
+    emit({"phase": "dryrun", "part": "local", **local,
+          "seconds": time.perf_counter() - t0})
+    for arch, shape in DRYRUN_PROD_CELLS:
+        rec = recs[(arch, shape)]
+        t = roofline.terms(rec)
+        emit({"phase": "dryrun", "part": "production", "arch": arch,
+              "shape": shape, "mesh": rec["mesh_shape"],
+              "settings": rec["settings"], "status": rec["status"],
+              "peak_gib": rec["memory"]["peak_estimate_bytes"] / 2**30,
+              "flops": rec["analysis"]["flops"],
+              "collectives": rec["collectives"],
+              "roofline": {k: t[k] for k in ("compute_s", "mem_min_s",
+                                             "mem_max_s", "coll_s",
+                                             "dominant", "useful_ratio")},
+              "ops": rec["analysis"]["ops"], "trace_s": rec["lower_s"]})
+    t0 = time.perf_counter()
+    cell = recs[DRYRUN_RDFH_CELL]
+    shard, n_launch = dryrun_rdfh_shard(rows, cell)
+    emit({"phase": "dryrun", "part": "rdfh", "cell_status": cell["status"],
+          "cell_peak_gib": cell["memory"]["peak_estimate_bytes"] / 2**30,
+          "cell_hbm_bytes": cell["analysis"]["hbm_bytes"],
+          "cell_collectives": cell["collectives"], **shard,
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "dryrun_summary",
+          "seconds": time.perf_counter() - t_phase})
+    return n_launch
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=13.0,
@@ -3416,7 +4017,23 @@ def main() -> None:
     timed("parity", parity_phase, args.parity_scale)
     timed("examples", examples_phase)
     timed("lm", lm_phase)
-    timed("train", train_phase)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = dryrun_start(tmp)
+        try:
+            timed("train", train_phase)
+            # the mesh phase runs with the host to itself
+            cells = timed("dryrun_wait", dryrun_collect, procs)
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    measured = timed("mesh", mesh_phase)
+    rdfh_launches = timed("dryrun", dryrun_phase, rows, measured, cells)
+    for row in rows:
+        if row.get("counter") == "interval_count_rdfh":
+            row.pop("counter")
+            row["launches"] = rdfh_launches
     emit({"phase": "seconds", "seconds": seconds,
           "total": time.perf_counter() - t_start})
 

@@ -15,8 +15,15 @@
   * retention: keep the last `keep` checkpoints.
 
 `restore(device=)` puts every leaf on one device, the card unless
-device="cpu" is asked for (the reference's `shardings=` places them on a
-mesh).
+device="cpu" is asked for; `restore(shardings=)` places them on a mesh
+as DTensors, which is where elastic restarts reshard.
+
+A tree with DTensor leaves is one state spread over the ranks of a
+torch.distributed world: every rank calls save (each leaf's global value
+is gathered on every rank), rank 0 alone writes the checkpoint, and the
+ranks meet at a barrier once it is on disk (before a synchronous save
+returns; in the next save or wait() after an asynchronous one), so that
+they may share one directory.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels.ops import resolve_device
-from ..tree import tree_from_leaves, tree_leaves
+from ..tree import tree_from_leaves, tree_leaves, tree_map
 
 
 def _flatten(tree) -> dict:
@@ -44,7 +51,10 @@ def _host_copy(leaf) -> tuple[np.ndarray, str]:
     if not torch.is_tensor(leaf):
         arr = np.array(leaf, copy=True)
         return arr, str(arr.dtype)
-    t = leaf.detach().to("cpu", copy=True)
+    leaf = leaf.detach()
+    if hasattr(leaf, "full_tensor"):        # a DTensor: its global value
+        leaf = leaf.full_tensor()
+    t = leaf.to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     return t.numpy(), str(t.numpy().dtype)
@@ -55,6 +65,11 @@ def _crc(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr))
 
 
+def _world_size() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = Path(directory)
@@ -62,13 +77,16 @@ class Checkpointer:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._barrier = False        # ranks meet once the save is on disk
 
     # ------------------------------------------------------------------ #
     def save(self, step: int, tree, meta: dict | None = None,
              async_: bool = True):
         """Checkpoint `tree` (nested dicts of tensors or numpy arrays) as
         `step`.  The leaves are copied to the host before save returns."""
-        host = {k: _host_copy(v) for k, v in _flatten(tree).items()}
+        flat = _flatten(tree)
+        sharded = any(hasattr(v, "full_tensor") for v in flat.values())
+        host = {k: _host_copy(v) for k, v in flat.items()}
 
         def write():
             tmp = self.dir / f"step_{step:010d}.tmp"
@@ -102,18 +120,27 @@ class Checkpointer:
                 self._error = e
 
         self.wait()
-        if async_:
+        self._barrier = sharded and _world_size() > 1
+        # of a sharded tree, rank 0 writes the whole
+        writes = not sharded or torch.distributed.get_rank() == 0
+        if writes and async_:
             self._thread = threading.Thread(target=write_async, daemon=True)
             self._thread.start()
-        else:
-            write()
+        elif writes:
+            write_async()          # its error raised by wait(), after the
+        if not async_:             # barrier
+            self.wait()
 
     def wait(self):
         """Block until the last asynchronous save is on disk; raise what
-        it raised."""
+        it raised.  After a save of DTensor leaves every rank of the
+        world must call it (a barrier)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            torch.distributed.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -137,7 +164,7 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, step: int | None = None, *, template=None,
-                device="cuda", verify: bool = True):
+                device="cuda", shardings=None, verify: bool = True):
         """Returns (tree, meta).  Leaves are tensors on `device` (the card
         unless device="cpu"; "cuda" without CUDA raises), in the dtype
         they were saved in.  With
@@ -145,8 +172,11 @@ class Checkpointer:
         are put in that layout, and a leaf the template has and the
         checkpoint lacks raises KeyError; otherwise a flat {path: tensor}
         dict is returned.  With verify, a leaf whose crc32 differs from
-        the manifest's raises IOError."""
-        dev = resolve_device(device)
+        the manifest's raises IOError.  `shardings` (the template's
+        layout, each leaf a (DeviceMesh, PS) pair) places every leaf on
+        its mesh as a DTensor, each rank keeping its shard (`device` is
+        then the mesh's)."""
+        dev = resolve_device(device) if shardings is None else "cpu"
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -169,5 +199,9 @@ class Checkpointer:
         missing = {"/".join(map(str, p)) for p in paths} - set(flat)
         if missing:
             raise KeyError(f"checkpoint missing leaves: {sorted(missing)[:5]}")
-        return tree_from_leaves(
-            (p, flat["/".join(map(str, p))]) for p in paths), manifest["meta"]
+        tree = tree_from_leaves(
+            (p, flat["/".join(map(str, p))]) for p in paths)
+        if shardings is not None:
+            from ..runtime.elastic import place
+            tree = tree_map(lambda x, ms: place(x, *ms), tree, shardings)
+        return tree, manifest["meta"]

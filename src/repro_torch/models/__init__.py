@@ -1,6 +1,7 @@
 """LM scaffold in PyTorch: every architecture family of ``configs.ARCHS``
 (dense, MoE, RWKV-6, hybrid SSM, encoder, VLM), trained (loss, train
-step) and served (prefill, decode) on one device."""
+step) and served (prefill, decode) on one device or, with `mesh=`, as
+DTensors on a torch DeviceMesh."""
 from . import transformer, nn_ops, moe, rwkv6, ssm, param, api, convert
 from .api import (make_loss_fn, make_train_step, make_prefill_fn,
                   make_decode_fn, init_model,

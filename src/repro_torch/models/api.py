@@ -1,13 +1,20 @@
 """Public model API: train and serve step functions (loss, train step,
-prefill, decode), model init and input batches — what a trainer, a server
-or a smoke run touches.
+prefill, decode), model init, input batches, the dry-run's abstract
+inputs and the sharding spec trees — everything a trainer, a server, a
+smoke run or the launcher touches.
 
-Everything runs on one device: `init_model` puts the parameters on the
-card unless `device="cpu"` is passed, and the step functions run on the
-device of the parameters they are given.  The dry-run tools (meshes,
-pspecs, `abstract_*`) are not ported yet.
+`init_model` puts the parameters on the card unless `device="cpu"` is
+passed.  Without a mesh the step functions run on the device of the
+parameters they are given.  With a mesh (a torch DeviceMesh whose axes
+are the reference's: 'data' / ('pod', 'data') and 'model') they take
+DTensors placed by the pspec trees (`model_pspecs`, `opt_pspecs`,
+`batch_pspecs`, `cache_pspecs`; `runtime.reshard` places a tree) and
+constrain the activations as the reference does; plain tensors that meet
+them (positions, masks, the step) count as replicated.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -16,7 +23,9 @@ from ..configs.base import ModelConfig, InputShape, TrainConfig
 from ..kernels.ops import resolve_device
 from ..optim import adamw_update, clip_by_global_norm, cosine_schedule
 from ..tree import tree_from_leaves, tree_leaves, tree_map
-from .param import PD, init_params
+from .param import (PD, PS, init_params, abstract_params, param_pspecs,
+                    make_rules, mesh_sizes, placements, Rules)
+from .nn_ops import Sharder
 from . import transformer as tf
 
 DECODE_PAD = 128     # extra slots after the prefilled cache
@@ -24,8 +33,54 @@ DECODE_PAD = 128     # extra slots after the prefilled cache
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
+# ---------------------------------------------------------------------- #
+def tp_size(mesh) -> int:
+    if mesh is None:
+        return 1
+    return mesh_sizes(mesh).get("model", 1)
+
+
+def dp_axes(mesh) -> tuple:
+    if mesh is None:
+        return ()
+    return tuple(a for a in mesh_sizes(mesh) if a != "model")
+
+
+def make_sharder(cfg: ModelConfig, mesh) -> Sharder:
+    tp = tp_size(mesh)
+    dp = dp_axes(mesh)
+    dp = dp if len(dp) != 1 else dp[0]
+    return Sharder(
+        mesh=mesh,
+        dp=dp,
+        tp_heads=cfg.num_heads % tp == 0,
+        tp_kv=cfg.num_kv_heads % tp == 0,
+    )
+
+
+def make_param_rules(cfg: ModelConfig, mesh, zero3: bool) -> Rules:
+    tp = tp_size(mesh)
+    return make_rules(mesh, tp_heads=cfg.num_heads % tp == 0,
+                      tp_kv=cfg.num_kv_heads % tp == 0, zero3=zero3)
+
+
+def model_pspecs(cfg: ModelConfig, mesh, zero3: bool = False):
+    return param_pspecs(tf.model_defs(cfg), make_param_rules(cfg, mesh, zero3))
+
+
+def cache_pspecs(cfg: ModelConfig, mesh, batch: int, cache_len: int,
+                 zero3: bool = False):
+    return param_pspecs(tf.cache_defs(cfg, batch, cache_len),
+                        make_param_rules(cfg, mesh, zero3))
+
+
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.float32 if cfg.param_dtype == "float32" else torch.bfloat16
+
+
+def abstract_model(cfg: ModelConfig):
+    """The parameter tree as meta tensors (no memory)."""
+    return abstract_params(tf.model_defs(cfg), param_dtype(cfg))
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -84,35 +139,110 @@ def concrete_batch(cfg, shape, seed=0):
     return out
 
 
+_BATCH_DTYPES = {"tokens": torch.int32, "labels": torch.int32,
+                 "mask": torch.bool, "frames": torch.bfloat16,
+                 "patches": torch.bfloat16}
+
+
+def batch_abstract(cfg, shape):
+    """One batch of `shape` as meta tensors."""
+    return {k: torch.empty(pd.shape, dtype=_BATCH_DTYPES[k], device="meta")
+            for k, pd in batch_defs(cfg, shape).items()}
+
+
+def batch_pspecs(cfg, shape, mesh, zero3=False):
+    rules = make_param_rules(cfg, mesh, zero3)
+    return {k: rules.spec(pd) for k, pd in batch_defs(cfg, shape).items()}
+
+
 def decode_cache_len(cfg, shape: InputShape) -> int:
     if cfg.attn_type == "sliding":
         return cfg.num_meta_tokens + cfg.window
     return shape.seq_len + DECODE_PAD
 
 
+def cache_abstract(cfg, shape: InputShape):
+    """A full decode cache of `shape` as meta tensors: positions int32,
+    recurrent states (S, h) fp32, the rest in the activation dtype."""
+    defs = tf.cache_defs(cfg, shape.global_batch,
+                         decode_cache_len(cfg, shape))
+    act = tf.cfg_dtype(cfg)
+
+    def meta(pd, dt):
+        return torch.empty(pd.shape, dtype=dt, device="meta")
+    blocks = {k: meta(pd, torch.float32 if k in ("S", "h") else act)
+              for k, pd in defs["blocks"].items()}
+    return {"blocks": blocks,
+            "slot_pos": meta(defs["slot_pos"], torch.int32),
+            "pos": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def opt_abstract(cfg: ModelConfig, tcfg: TrainConfig):
+    dt = torch.float32 if tcfg.opt_state_dtype == "float32" \
+        else torch.bfloat16
+    p = abstract_model(cfg)
+
+    def zeros(x):
+        return torch.empty(x.shape, dtype=dt, device="meta")
+    return {"m": tree_map(zeros, p), "v": tree_map(zeros, p),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def opt_pspecs(cfg: ModelConfig, mesh, zero3=False):
+    ps = model_pspecs(cfg, mesh, zero3)
+    return {"m": ps, "v": ps, "step": PS()}
+
+
+def _meshed(mesh):
+    """Decorator of the step functions: with a mesh they run under
+    implicit_replication, where plain tensors that meet DTensors
+    (positions, masks, the step) count as replicated."""
+    def wrap(fn):
+        if mesh is None:
+            return fn
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with implicit_replication():
+                return fn(*args, **kwargs)
+        return run
+    return wrap
+
+
 # ---------------------------------------------------------------------- #
 # Step functions
 # ---------------------------------------------------------------------- #
-def make_loss_fn(cfg: ModelConfig, *, remat=True):
+def make_loss_fn(cfg: ModelConfig, mesh=None, *, remat=True):
     """(params, batch) -> (loss, metrics), the parameters cast to the
     activation dtype inside the graph (gradients reach the masters)."""
+    shd = make_sharder(cfg, mesh)
+
+    @_meshed(mesh)
     def loss(params, batch):
-        return tf.loss_fn(cfg, cast_params(cfg, params), batch, remat=remat)
+        return tf.loss_fn(cfg, cast_params(cfg, params), batch, shd,
+                          remat=remat)
     return loss
 
 
-def _split_rows(batch, n: int) -> list:
+def _split_rows(batch, n: int, shd: Sharder) -> list:
     """n contiguous row groups of every batch entry (the reference's
-    reshape(n, B // n, ...))."""
+    reshape(n, B // n, ...)).  Under a mesh each entry is gathered first
+    (the batch is ids: small) and every group is spread over the data
+    ranks again, each rank holding its slice of the group's rows, as the
+    reference's microbatches are."""
     b = next(iter(batch.values())).shape[0]
     if b % n:
         raise ValueError(f"batch {b} does not split into {n} microbatches")
     per = b // n
-    return [{k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-            for i in range(n)]
+    if shd.mesh is not None:
+        batch = {k: shd.c(v) for k, v in batch.items()}
+    return [{k: shd.c(v[i * per:(i + 1) * per], shd.dp)
+             for k, v in batch.items()} for i in range(n)]
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """(params, opt_state, batch, step) -> (params, opt_state, metrics).
 
     Gradients of every float leaf: with grad_dtype "bfloat16" with respect
@@ -124,11 +254,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     learning rate and AdamW, which writes the new parameters and state
     into `params` and `opt_state` (optim.adamw_update).  The metrics
     {"loss", "grad_norm", "lr", **loss metrics} are 0-d tensors on the
-    parameters' device: nothing waits for the host.  `tcfg.zero3` is
-    ignored, as the reference ignores it without a mesh."""
+    parameters' device: nothing waits for the host.
+
+    With a mesh the parameters, state and batch are DTensors (placed by
+    model_pspecs / opt_pspecs with tcfg.zero3, and batch_pspecs), and
+    every gradient is redistributed to its parameter's placements (the
+    data-parallel reduction; under ZeRO-3 a reduce-scatter over the data
+    axes).  `tcfg.zero3` shapes only those placements, as in the
+    reference; without a mesh it changes nothing."""
     bf16_grads = tcfg.grad_dtype == "bfloat16"
     dt = tf.cfg_dtype(cfg)
     n_mb = tcfg.microbatch
+    shd = make_sharder(cfg, mesh)
+    specs = (dict(tree_leaves(model_pspecs(cfg, mesh, tcfg.zero3)))
+             if mesh is not None else None)
 
     def grad_fn(params, batch):
         paths = [p for p, x in tree_leaves(params) if x.dtype in _FLOATS]
@@ -143,23 +282,27 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             wrt = {p: leaves[p].detach().requires_grad_() for p in paths}
             cast = {p: w.to(dt) for p, w in wrt.items()}
         tree = tree_from_leaves({**leaves, **cast})
-        loss, metrics = tf.loss_fn(cfg, tree, batch, remat=tcfg.remat)
+        loss, metrics = tf.loss_fn(cfg, tree, batch, shd, remat=tcfg.remat)
         grads = torch.autograd.grad(loss, [wrt[p] for p in paths])
+        if specs is not None:
+            grads = [g.redistribute(mesh, placements(specs[p], mesh))
+                     for p, g in zip(paths, grads)]
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 tree_from_leaves(zip(paths, grads)))
 
+    @_meshed(mesh)
     def train_step(params, opt_state, batch, step):
         dev = params["final_norm"].device
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        batch = {k: tf.as_input(v, dev) for k, v in batch.items()}
         if n_mb == 1:
             loss, metrics, grads = grad_fn(params, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=dev), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             acc = dict(tree_leaves(grads))
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             ms = []
-            for mb in _split_rows(batch, n_mb):
+            for mb in _split_rows(batch, n_mb, shd):
                 l, m, g = grad_fn(params, mb)
                 for path, gl in tree_leaves(g):
                     acc[path].add_(gl)          # exact: fp32 += bf16
@@ -183,17 +326,24 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     return train_step
 
 
-def make_prefill_fn(cfg: ModelConfig, *, cache_len=0):
+def make_prefill_fn(cfg: ModelConfig, mesh=None, *, cache_len=0):
     """(params, batch) -> (last logits [B, V] f32, cache)."""
+    shd = make_sharder(cfg, mesh)
+
+    @_meshed(mesh)
     def fn(params, batch):
-        return tf.prefill(cfg, cast_params(cfg, params), batch,
+        return tf.prefill(cfg, cast_params(cfg, params), batch, shd,
                           cache_len=cache_len)
     return fn
 
 
-def make_decode_fn(cfg: ModelConfig):
+def make_decode_fn(cfg: ModelConfig, mesh=None):
     """(params, cache, tokens [B]) -> (logits [B, V] f32, new cache).
     The attention caches are written in place (transformer.decode_step)."""
+    shd = make_sharder(cfg, mesh)
+
+    @_meshed(mesh)
     def fn(params, cache, tokens):
-        return tf.decode_step(cfg, cast_params(cfg, params), cache, tokens)
+        return tf.decode_step(cfg, cast_params(cfg, params), cache, tokens,
+                              shd)
     return fn

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .param import PD
-from .nn_ops import rms_norm
+from .nn_ops import Sharder, NO_SHARD, per_shard, rms_norm
 
 
 LORA_R = 64
@@ -78,31 +78,19 @@ def _projections(p, x, xprev):
     return r @ p["Wr"], k @ p["Wk"], v @ p["Wv"], logw, F.silu(g @ p["Wg"])
 
 
-def time_mix_chunked(cfg, p, x, state, chunk=None):
-    """x [B,S,D]; state (S [B,H,hd,hd] f32, prev_x [B,D]).
-
-    Returns (y [B,S,D], new_state)."""
-    b, s_real, d = x.shape
-    hd = cfg.rwkv_head_dim
-    h = rwkv_heads(cfg)
-    c = min(chunk or cfg.rwkv_chunk, s_real)
-    S, prev_x = state
-    x_last = x[:, -1]
-
-    r, k, v, logw, g = _projections(p, x, _shift(x, prev_x))
-    s = s_real
-    if s % c:
-        # pad tail: k=0 and logw=0 make padded steps state-neutral
-        pad = c - s % c
-        r, k, v, logw = (F.pad(t, (0, 0, 0, pad)) for t in (r, k, v, logw))
-        s = s + pad
+def _wkv_chunks(r, k, v, logw, u, S, c: int):
+    """The chunked WKV recurrence: r, k, v, logw [B, S, H*hd] (S a
+    multiple of c), u [H, hd], S [B, H, hd, hd] f32 ->
+    (y [B, S, H*hd] f32, the new S).  Heads and rows are independent."""
+    b, s, dh = r.shape
+    hd = S.shape[-1]
+    h = dh // hd
     nc = s // c
 
     def heads(z):  # [B,S,D] -> [B, H, nc, c, hd] f32
         return z.float().reshape(b, nc, c, h, hd).permute(0, 3, 1, 2, 4)
     rh, kh, vh, lw = heads(r), heads(k), heads(v), heads(logw)
-    u = p["u"].float()
-    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device),
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                      -1)
     ys = []
     for i in range(nc):
@@ -127,29 +115,70 @@ def time_mix_chunked(cfg, p, x, state, chunk=None):
         kdec = kc * torch.exp(lam_c - lam)
         S = torch.exp(lam_c[:, :, 0, :, None]) * S \
             + torch.einsum("bhjd,bhje->bhde", kdec, vc)
-    y = torch.stack(ys, 2).permute(0, 2, 3, 1, 4).reshape(b, s, d)[:, :s_real]
+    return torch.stack(ys, 2).permute(0, 2, 3, 1, 4).reshape(b, s, dh), S
+
+
+def _wkv_step(r, k, v, logw, u, S0):
+    """One token: r, k, v, logw [B, H*hd], u [H, hd], S0 [B, H, hd, hd]
+    f32 -> (y [B, H*hd] f32, the new S)."""
+    b, dh = r.shape
+    hd = S0.shape[-1]
+    h = dh // hd
+
+    def hs(z):
+        return z.reshape(b, h, hd).float()
+    rh, kh, vh = hs(r), hs(k), hs(v)
+    w = torch.exp(hs(logw))
+    kv = torch.einsum("bhd,bhe->bhde", kh, vh)
+    y = torch.einsum("bhd,bhde->bhe", rh, S0 + u[None, :, :, None] * kv)
+    return y.reshape(b, dh), w[..., None] * S0 + kv
+
+
+def _per_head_shard(fn, shd: Sharder, h: int, acts, u, S):
+    """fn(*acts, u, S) on each rank's heads under a mesh (heads over
+    'model' where they divide it, rows over the data axes): the
+    recurrence never mixes heads or rows."""
+    if shd.mesh is None:
+        return fn(*acts, u, S)
+    hax = "model" if h % shd.size("model") == 0 else None
+    acts = [shd.c(a, shd.dp, *([None] * (a.ndim - 2)), hax) for a in acts]
+    u = shd.c(u, hax, None)
+    S = shd.c(S, shd.dp, hax, None, None)
+    return per_shard(fn, [acts[0].placements, S.placements], *acts, u, S)
+
+
+def time_mix_chunked(cfg, p, x, state, chunk=None,
+                     shd: Sharder = NO_SHARD):
+    """x [B,S,D]; state (S [B,H,hd,hd] f32, prev_x [B,D]).
+
+    Returns (y [B,S,D], new_state)."""
+    b, s_real, d = x.shape
+    c = min(chunk or cfg.rwkv_chunk, s_real)
+    S, prev_x = state
+    x_last = x[:, -1]
+
+    r, k, v, logw, g = _projections(p, x, _shift(x, prev_x))
+    if s_real % c:
+        # pad tail: k=0 and logw=0 make padded steps state-neutral
+        pad = c - s_real % c
+        r, k, v, logw = (F.pad(t, (0, 0, 0, pad)) for t in (r, k, v, logw))
+    y, S = _per_head_shard(lambda *a: _wkv_chunks(*a, c), shd,
+                           rwkv_heads(cfg), (r, k, v, logw),
+                           p["u"].float(), S)
+    y = y[:, :s_real]
     y = rms_norm(y.to(x.dtype), p["ln_y"], cfg.norm_eps) * g
     out = y @ p["Wo"]
     return out, (S, x_last)
 
 
-def time_mix_step(cfg, p, x, state):
+def time_mix_step(cfg, p, x, state, shd: Sharder = NO_SHARD):
     """Single-token decode: x [B,D] -> (y [B,D], new_state)."""
-    b, d = x.shape
-    hd = cfg.rwkv_head_dim
-    h = rwkv_heads(cfg)
     S0, prev_x = state
     r, k, v, logw, g = _projections(p, x[:, None], prev_x[:, None])
-    def hs(z):
-        return z.reshape(b, h, hd).float()
-    rh, kh, vh = hs(r[:, 0]), hs(k[:, 0]), hs(v[:, 0])
-    w = torch.exp(logw[:, 0].reshape(b, h, hd))
-    u = p["u"].float()
-    kv = torch.einsum("bhd,bhe->bhde", kh, vh)
-    y = torch.einsum("bhd,bhde->bhe", rh, S0 + u[None, :, :, None] * kv)
-    S_new = w[..., None] * S0 + kv
-    y = y.reshape(b, d).to(x.dtype)
-    y = rms_norm(y, p["ln_y"], cfg.norm_eps) * g[:, 0]
+    y, S_new = _per_head_shard(_wkv_step, shd, rwkv_heads(cfg),
+                               (r[:, 0], k[:, 0], v[:, 0], logw[:, 0]),
+                               p["u"].float(), S0)
+    y = rms_norm(y.to(x.dtype), p["ln_y"], cfg.norm_eps) * g[:, 0]
     return y @ p["Wo"], (S_new, x)
 
 

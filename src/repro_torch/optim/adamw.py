@@ -18,8 +18,10 @@ from ..tree import tree_leaves, tree_map
 
 
 def adamw_init(params, state_dtype=torch.float32):
+    """Zero moments congruent with `params` (DTensor parameters get
+    DTensor moments with their placements) and a step of 0."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+        return torch.zeros_like(p, dtype=state_dtype)
     dev = next(leaf for _, leaf in tree_leaves(params)).device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}

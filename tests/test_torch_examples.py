@@ -9,12 +9,16 @@ and holds the match counts — and for the governed stream the typed
 errors, the ladder's counters, the delta's migration counts and the
 snapshot replay — equal.
 """
+import time
+
 import numpy as np
 import pytest
 
 import repro.core as J
 import repro.data as JD
 import repro.serve as JS
+import repro.serve.governor as JGOV
+import repro_torch.serve.governor as TGOV
 from repro.testing import Fault as JFault, FaultInjector as JInjector
 from repro_torch.examples import (quickstart, rdf_scenario, serve_queries,
                                   train_lm)
@@ -99,11 +103,29 @@ def _ref_delta(g, seed=0):
     return inserts, deletes
 
 
-def test_serve_queries_governed_chaos_delta_snapshot(tmp_path):
+class _StoppedClock:
+    """The time module as the governors see it, with time.monotonic
+    stopped: a breaker's or a rung's cooldown then never runs out within
+    the test, however slowly a loaded host runs it, so both stacks pass
+    through the same states (a cooldown that runs out in one stack's run
+    and not in the other's changes its replay's degraded count)."""
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+    @staticmethod
+    def monotonic():
+        return 1000.0
+
+
+def test_serve_queries_governed_chaos_delta_snapshot(tmp_path, monkeypatch):
     """--governed --chaos --delta --snapshot: the persistent fault drives
     the ladder; the reference server under the same fault, delta and
     snapshot counts the same matches, errors, rungs, migrations and warm
-    replays."""
+    replays.  The governors' monotonic clock is stopped (_StoppedClock)
+    in both stacks."""
+    for mod in (JGOV, TGOV):
+        monkeypatch.setattr(mod, "time", _StoppedClock())
     got = serve_queries.main(
         ["--device", "cpu", "--scale", str(SCALE), "--queries", "40",
          "--governed", "--chaos", "--delta",
