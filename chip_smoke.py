@@ -37,7 +37,9 @@ exits non-zero without its final line:
             launched during this phase, the check must launch
             interval_count at most once per call cold and never warm,
             every join expand must be exactly one expand_segments
-            launch, and results must equal the same engine's on the CPU;
+            launch, and the results of the first and the last template
+            must equal the CPU engine's on the same Dataset, run after
+            the timed rounds;
             prints the shapes of every sort-merge probe, join expand and
             radix join.  Then merge_probe and expand_gather run again as
             kernel rows on the real inputs of the commonest probe and
@@ -108,9 +110,19 @@ exits non-zero without its final line:
             typed error, and the fault's and breaker's counters equal to
             the CPU port's run of the same scenario
   delta_rebuild
-            apply_delta's rebuild path (churn above churn_threshold) at
-            the governed phase's scale: nothing carried, every result
-            equal to a fresh card engine's
+            every path of apply_delta on the full NI variant, one delta
+            after another through one server at the governed phase's
+            scale: the rebuilds for a new label, a literal as a subject
+            (node-kind), churn above churn_threshold and a dropped label,
+            each carrying no device tensor, then an incremental delta
+            whose deletes name triples the graph lacks and whose inserts
+            repeat triples it holds; each step's mode and reason the ones
+            it aimed at; its graph's triples in edge order, labels,
+            predicates and node kinds those of a triple list kept in
+            plain Python (every copy of each delete dropped, the inserts
+            appended), and its digest that of Dataset.from_triples on
+            that list; every result of the round after it equal to a
+            fresh card engine's; one line a step
   parity    lubm_like and dblp_like at scale 0.3: the card's result sets
             equal the CPU engine's, exactly, for rdf_h and for the bloom
             configuration
@@ -154,7 +166,7 @@ exits non-zero without its final line:
             torch.Generator seeded 0 on the card: (a) qwen2-0.5b at full
             width and depth, bf16 activations over fp32 masters,
             TrainConfig(grad_dtype="bfloat16", microbatch=4, remat=True),
-            4 steps (the first a warm-up) of 16 x 4,096 tokens from
+            3 steps (the first a warm-up) of 16 x 4,096 tokens from
             TokenPipeline (train_4k's length; its global batch of 256 cut
             to 16 for time), each loss and grad_norm finite; prints
             seconds a step, tokens/s, the step's FLOPs (4x the forward:
@@ -222,8 +234,9 @@ exits non-zero without its final line:
             roofline time beside the measured step;
             (2) qwen2-0.5b and llama4-maverick-400b-a17b train_4k on the
             (16, 16) production mesh at full width, each ok, with peak
-            GiB, FLOPs, collectives by kind and the roofline's terms
-            (traced by `python -m repro_torch.launch.dryrun` in processes
+            GiB, FLOPs, collectives by kind (and split by issuer) and the
+            roofline's terms (traced by `python -m
+            repro_torch.launch.dryrun` in processes
             of their own at the lowest priority, started before the
             train phase, whose steps the card runs meanwhile: they need
             the host only, and they are done before the mesh phase); (3) the RDF-h check cell on that mesh (traced
@@ -1031,7 +1044,6 @@ def main_phase(ds, n_queries: int):
 
     g = ds.graph
     gpu = ds.engine("rdf_h", device=DEVICE)
-    cpu = ds.engine("rdf_h", device="cpu")
     queries = [random_query(g, size=6, seed=100 + i,
                             n_connection=1 if i >= n_queries - 4 else 0)
                for i in range(n_queries)]
@@ -1145,21 +1157,24 @@ def main_phase(ds, n_queries: int):
              f"{launches['expand_segments']} expand_segments launches")
     profile = profile_warm(gpu, pqs)
 
-    # correctness: shape and id range, warm == cold, and — for the first
-    # query and the last (a connection edge through the reach-join), the
-    # CPU engine being slow at full size — the card's result sets equal
-    # the CPU engine's on the same Dataset (the parity phase compares
-    # every query shape at a small scale)
+    # correctness, after the timed rounds: shape and id range, warm ==
+    # cold, and — for the first query and the last (a connection edge
+    # through the reach-join), the CPU engine being slow at full size —
+    # the card's results equal the CPU engine's on the same Dataset (the
+    # parity phase compares every query shape at a small scale)
     cpu_checked = (0, n_queries - 1)
-    t0 = time.perf_counter()
     for i, q in enumerate(queries):
         cold, warm = results[("cold", i)], results[("warm", i)]
         check_rows(cold, g.num_nodes, q.num_nodes)
-        if warm.result_set() != cold.result_set():
+        if result_digest(warm) != result_digest(cold):
             fail(f"query {i}: warm result differs from cold")
-        if i in cpu_checked and \
-                cpu.execute(q).result_set() != cold.result_set():
+    t0 = time.perf_counter()
+    cpu = ds.engine("rdf_h", device="cpu")
+    for i in cpu_checked:
+        if result_digest(cpu.execute(queries[i])) != \
+                result_digest(results[("cold", i)]):
             fail(f"query {i}: the card's result differs from the CPU's")
+    del cpu
     cpu_check_s = time.perf_counter() - t0
 
     stats = [results[("cold", i)].stats for i in range(n_queries)]
@@ -1278,13 +1293,18 @@ def main_shape_rows(common) -> list:
 
 def result_digest(res) -> str:
     """The result set of a MatchResult as a digest: its distinct rows with
-    the columns in query-node order, sorted, hashed, and the row count."""
+    the columns in query-node order, sorted, hashed, and the row count.
+    The rows are sorted and deduplicated on the card: torch.unique takes
+    milliseconds there for a million rows that np.unique takes over a
+    second for on the host."""
     import hashlib
     import numpy as np
-    rows = np.asarray(res.rows)[:, np.argsort(res.cols)]
+    import torch
+    rows = np.ascontiguousarray(
+        np.asarray(res.rows)[:, np.argsort(res.cols)], dtype=np.int32)
     if len(rows):
-        rows = np.unique(rows, axis=0)
-    rows = np.ascontiguousarray(rows, dtype=np.int32)
+        rows = torch.unique(torch.from_numpy(rows).to(DEVICE),
+                            dim=0).cpu().numpy()
     return f"{hashlib.sha256(rows.tobytes()).hexdigest()}:{len(rows)}"
 
 
@@ -1559,9 +1579,9 @@ def bloom_phase(ds) -> tuple:
     for i, q in enumerate(queries):
         cold = res[("cold", i)]
         check_rows(cold, g.num_nodes, q.num_nodes)
-        if cold.result_set() != want[i].result_set():
+        if result_digest(cold) != result_digest(want[i]):
             fail(f"bloom query {i}: the result differs from spath_ni2's")
-        if res[("warm", i)].result_set() != cold.result_set():
+        if result_digest(res[("warm", i)]) != result_digest(cold):
             fail(f"bloom query {i}: warm result differs from cold")
         if cold.stats.candidates_after != want[i].stats.candidates_after:
             fail(f"bloom query {i}: candidates after the check differ")
@@ -2130,28 +2150,132 @@ def governed_phase() -> tuple:
 GOV_KERNELS = ("merge_probe", "expand_segments", "interval_count")
 
 
-def rebuild_delta(ds, queries) -> None:
-    """The rebuild path of apply_delta (churn above churn_threshold) at
-    the governed phase's scale: a full rebuild carries no device tensor,
-    and every result equals a fresh card engine's (delta_step)."""
-    import torch
+def rebuild_deltas(g) -> list:
+    """The deltas of the delta_rebuild phase, one per path that
+    Dataset.apply_delta takes on the full NI variant, in the order they
+    are applied, each built from the graph it applies to: (name, its
+    (inserts, deletes) as a function of that graph, churn_threshold, the
+    mode and reason it must take)."""
+    import numpy as np
+    from repro_torch.core import LITERAL
     from repro_torch.examples.serve_queries import delta_triples
+
+    def triple(g, i):
+        return (g.labels[g.src[i]], g.predicates[g.pred[i]],
+                g.labels[g.dst[i]])
+
+    def new_label(g):
+        return [("Zz/new-subject-404", g.predicates[0], g.labels[0])], []
+
+    def node_kind(g):             # a literal as a subject
+        lit = int(np.flatnonzero(g.node_kind == LITERAL)[0])
+        return [(g.labels[lit], g.predicates[0], g.labels[0])], []
+
+    def label_dropped(g):         # every edge of the least-mentioned node
+        ment = (np.bincount(g.src, minlength=g.num_nodes)
+                + np.bincount(g.dst, minlength=g.num_nodes))
+        ment[ment == 0] = np.iinfo(ment.dtype).max
+        victim = int(np.argmin(ment))
+        idx = np.flatnonzero((g.src == victim) | (g.dst == victim))
+        return [], [triple(g, i) for i in idx]
+
+    def unknown_and_duplicates(g):
+        # deletes: names the graph lacks, and the first edge reversed
+        # (known names on no edge, unless the graph holds that edge too)
+        rev = ((g.src == g.dst[0]) & (g.dst == g.src[0])
+               & (g.pred == g.pred[0]))
+        known = (g.labels[0], "no/such-predicate", g.labels[1]) \
+            if rev.any() else (g.labels[g.dst[0]], g.predicates[g.pred[0]],
+                               g.labels[g.src[0]])
+        return ([triple(g, i) for i in range(3)],
+                [("no/such", "no/such", "no/such"), known])
+
+    return [("new-label", new_label, 0.05, ("rebuild", "new-label")),
+            ("node-kind", node_kind, 0.05, ("rebuild", "node-kind")),
+            ("churn", lambda g: delta_triples(g, 0), 0.0,
+             ("rebuild", "churn")),
+            ("label-dropped", label_dropped, 0.05,
+             ("rebuild", "label-dropped")),
+            ("unknown-and-duplicates", unknown_and_duplicates, 0.05,
+             ("incremental", None))]
+
+
+def graph_triples(g) -> list:
+    """The graph's (subject, predicate, object) strings in edge order."""
+    return list(zip(g.labels[g.src].tolist(), g.predicates[g.pred].tolist(),
+                    g.labels[g.dst].tolist()))
+
+
+def rebuild_delta(ds, queries) -> None:
+    """Every path of apply_delta on the full NI variant at the governed
+    phase's scale, one delta after another through one server
+    (rebuild_deltas): a new label, a literal as a subject (node kind),
+    churn above churn_threshold and a dropped label, each a full rebuild
+    that carries no device tensor, then an incremental delta whose
+    deletes name triples the graph lacks and whose inserts repeat
+    triples it holds.  Each is a delta_step, so every result equals a
+    fresh card engine's; each new Dataset takes the mode and reason the
+    step aimed at.  Its graph is held to a triple list kept in plain
+    Python beside the server (every copy of each deleted triple goes, the
+    inserts are appended): its triples in edge order, its labels, its
+    predicates and its node kinds (a label is a literal iff it is forced
+    or never a subject); and its digest equals Dataset.from_triples' on
+    that list."""
+    import torch
+    from repro_torch.core import LITERAL, RESOURCE, Dataset
     from repro_torch.serve import QueryServer
 
     t_phase = time.perf_counter()
     srv = QueryServer(ds, "rdf_h", calibrate=False, device=DEVICE)
     for f in srv.submit_many(queries, wait=True):
         f.result()
-    inserts, deletes = delta_triples(ds.graph, 0)
-    step = delta_step(srv, queries, inserts, deletes, "rebuild",
-                      churn_threshold=0.0)
-    if step["info"]["mode"] != "rebuild" or step["carried"]:
-        fail(f"delta rebuild: took {step['info']} and carried "
-             f"{step['carried']}")
+    forced = set(ds.literal_forced or ())
+    want = graph_triples(ds.graph)
+    steps = []
+    for name, make, churn, (mode, reason) in rebuild_deltas(ds.graph):
+        prev = srv.dataset
+        inserts, deletes = make(prev.graph)
+        t0 = time.perf_counter()
+        drop = {tuple(map(str, t)) for t in deletes}
+        want = [t for t in want if t not in drop] + \
+            [tuple(map(str, t)) for t in inserts]
+        subjects = {t[0] for t in want}
+        labels = sorted(subjects | {t[2] for t in want})
+        kinds = [LITERAL if x in forced or x not in subjects else RESOURCE
+                 for x in labels]
+        # a Dataset's digest is its graph's: the NI index and the stats
+        # are adopted as given, not built, since the digest reads neither
+        digest = Dataset.from_triples(want, literal_objects=forced or None,
+                                      ni=prev.ni, stats=prev.stats).digest
+        t_oracle = time.perf_counter() - t0
+        step = delta_step(srv, queries, inserts, deletes, name,
+                          churn_threshold=churn)
+        info, new = step["info"], srv.dataset
+        if info["mode"] != mode or info.get("reason") != reason:
+            fail(f"delta_rebuild {name}: took {info}, not {mode} {reason}")
+        if mode == "rebuild" and step["carried"]:
+            fail(f"delta_rebuild {name}: a rebuild carried "
+                 f"{step['carried']}")
+        g = new.graph
+        if new.num_edges != len(want) or graph_triples(g) != want:
+            fail(f"delta_rebuild {name}: its {new.num_edges} edges are not "
+                 f"the plain delta's {len(want)} triples, in order")
+        if g.labels.tolist() != labels or g.predicates.tolist() != \
+                sorted({t[1] for t in want}) or g.node_kind.tolist() != kinds:
+            fail(f"delta_rebuild {name}: labels, predicates or node kinds "
+                 "differ from the plain delta's")
+        if new.digest != digest or new.version != prev.version + 1:
+            fail(f"delta_rebuild {name}: digest {new.digest} v{new.version}"
+                 f", from_triples {digest} after v{prev.version}")
+        step.update(inserts=len(inserts), deletes=len(deletes),
+                    edges=new.num_edges, digest=new.digest,
+                    oracle_s=t_oracle)
+        emit({"phase": "delta_rebuild_step", **step})
+        steps.append(name)
     del srv
     torch.cuda.empty_cache()
     emit({"phase": "delta_rebuild", "scale": GOV_SCALE,
-          "triples": ds.num_edges, "step": step,
+          "triples": ds.num_edges, "steps": steps,
           "seconds": time.perf_counter() - t_phase})
 
 
@@ -2709,7 +2833,7 @@ def lm_phase() -> None:
 # ---------------------------------------------------------------------- #
 TRAIN_MODEL = "qwen2-0.5b"              # (a)-(c), (e): full width and depth
 # (a): train_4k's sequence; its global batch of 256 cut to 16 for time
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 16, 4096, 4, 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 16, 4096, 3, 4
 TRAIN_FULL_BATCH = 256
 TRAIN_MEM_BATCH, TRAIN_MEM_SEQ, TRAIN_MEM_STEPS = 2, 512, 8     # (b)
 TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128                          # (c)
@@ -3912,6 +4036,7 @@ def dryrun_phase(rows: list, measured: dict, recs: dict) -> int:
               "peak_gib": rec["memory"]["peak_estimate_bytes"] / 2**30,
               "flops": rec["analysis"]["flops"],
               "collectives": rec["collectives"],
+              "collectives_by_op": rec["analysis"]["collectives_by_op"],
               "roofline": {k: t[k] for k in ("compute_s", "mem_min_s",
                                              "mem_max_s", "coll_s",
                                              "dominant", "useful_ratio")},
@@ -3939,10 +4064,7 @@ def main() -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         import torch
-        import numpy as np
-        from repro_torch.kernels import _build
-        from repro_torch.core import Dataset
-        from repro_torch.data import lubm_like
+        import repro_torch.core  # noqa: F401 (the port is importable)
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
     if not torch.cuda.is_available():
@@ -3957,6 +4079,11 @@ def main() -> None:
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
+
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.core import Dataset
+    from repro_torch.data import lubm_like
 
     t0 = time.perf_counter()
     _build.build_all()

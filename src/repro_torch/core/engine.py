@@ -1025,7 +1025,8 @@ def make_engine(dataset: "Dataset | RDFGraph", variant: str = "rdf_h",
                              f"index (Dataset.build(ni_variant='vc'))")
         return Engine(dataset, cfg)
     warnings.warn(
-        "make_engine(graph, ...) is deprecated; build a Dataset "
+        "make_engine(graph, ...) is deprecated; build a "
+        "repro_torch.core.Dataset "
         "(Dataset.build(graph, variant=...)) and pass that instead",
         DeprecationWarning, stacklevel=2)
     ds = Dataset.build(dataset, variant=variant, ni=ni, stats=stats)

@@ -24,6 +24,14 @@ It sums:
     reference's perfect-elementwise-fusion bound);
   * collectives: count and operand bytes per kind (all-gather,
     all-reduce, reduce-scatter, all-to-all, collective-permute);
+  * collectives_by_op: the same, per kind, split by what issued each
+    collective: an explicit redistribution ("redistribute": Sharder.c, a
+    gradient put in its parameter's placements; "redistribute.backward":
+    the transpose of one) or DTensor's dispatch of an aten op whose
+    inputs it had to redistribute (the op's name), with the pass it ran
+    in (":fw", or ":bw" inside autograd's backward, a checkpoint's
+    recompute included) and the innermost frame of the port that was
+    running ("@ nn_ops.py:c"; a backward pass shows its caller);
   * peak_bytes: the largest sum of the storages that ops of the step
     allocated and that were alive at once (a storage dies when the last
     tensor on it does, including tensors autograd saved).
@@ -34,6 +42,8 @@ is no counterpart.
 """
 from __future__ import annotations
 
+import os
+import sys
 import weakref
 
 import torch
@@ -80,6 +90,30 @@ def _collective_kind(func) -> str | None:
     return None
 
 
+_REDISTRIBUTE = os.path.join("distributed", "tensor", "_redistribute.py")
+_PORT = os.sep + "repro_torch" + os.sep
+
+
+def _issuer(last_op: str | None) -> str:
+    """What issued the collective now running (see the module
+    docstring), read from the Python stack: DTensor's dispatch of an op
+    leaves no frame that tells it from the op's caller, so a collective
+    outside a redistribution is charged to the last DTensor op seen."""
+    names, site = set(), None
+    f = sys._getframe(2)
+    while f is not None:
+        path = f.f_code.co_filename
+        if path.endswith(_REDISTRIBUTE):
+            names.add(f.f_code.co_name)
+        elif site is None and _PORT in path:
+            site = f"{os.path.basename(path)}:{f.f_code.co_name}"
+        f = f.f_back
+    what = ("redistribute.backward" if "backward" in names else
+            "redistribute" if "forward" in names else last_op or "?")
+    bw = torch._C._current_autograd_node() is not None
+    return f"{what}:{'bw' if bw else 'fw'} @ {site or '?'}"
+
+
 def _in_fake_mode() -> bool:
     from torch._guards import active_fake_mode
     return active_fake_mode() is not None
@@ -99,6 +133,8 @@ class OpCounter(TorchDispatchMode):
         self.hbm_bytes_min = 0.0
         self.collectives = {c: {"count": 0.0, "bytes": 0.0}
                             for c in COLLECTIVES}
+        self.collectives_by_op = {c: {} for c in COLLECTIVES}
+        self._last_op = None
         self.ops = 0
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -128,6 +164,7 @@ class OpCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         if any(issubclass(t, DTensor) for t in types):
+            self._last_op = str(func)
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
@@ -140,6 +177,10 @@ class OpCounter(TorchDispatchMode):
             b = _nbytes(args)
             self.collectives[kind]["count"] += 1
             self.collectives[kind]["bytes"] += b
+            split = self.collectives_by_op[kind].setdefault(
+                _issuer(self._last_op), {"count": 0.0, "bytes": 0.0})
+            split["count"] += 1
+            split["bytes"] += b
             moved = b + _nbytes(out)
             self.hbm_bytes += moved
             self.hbm_bytes_min += moved
@@ -168,7 +209,8 @@ class OpCounter(TorchDispatchMode):
         return {"flops": self.flops, "hbm_bytes": self.hbm_bytes,
                 "hbm_bytes_min": self.hbm_bytes_min,
                 "collective_bytes": self.collective_bytes,
-                "collectives": self.collectives, "ops": self.ops,
+                "collectives": self.collectives,
+                "collectives_by_op": self.collectives_by_op, "ops": self.ops,
                 "peak_intermediate_bytes": self.peak_bytes}
 
 

@@ -335,8 +335,12 @@ def _sharded_lse_gold(logits, labels, shd: Sharder):
     max and the sum of exponentials reduced over the shards, the gold
     logit taken on the shard that holds it (a partial sum over 'model')."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    m = logits.detach().amax(-1, keepdim=True)
-    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    # the max, the sum and the gold logit reduced over 'model' at once, as
+    # in the reference's layout: DTensor would otherwise scatter them over
+    # the sequence and gather the [B, c, V] cotangent in the backward pass
+    m = shd.c(logits.detach().amax(-1, keepdim=True), shd.dp, None, None)
+    lse = torch.log(shd.c(torch.exp(logits - m).sum(-1), shd.dp, None)) \
+        + m[..., 0]
     vocab_sharded = [p == Shard(2) for p in logits.placements]
     lab_pl = [p if p == Shard(0) else Replicate()
               for p in logits.placements]
@@ -349,7 +353,7 @@ def _sharded_lse_gold(logits, labels, shd: Sharder):
               for vs, p in zip(vocab_sharded, lab_pl)]
     gold = per_shard(lambda lg, lb: _vocab_gold(lg, lb, lo), out_pl,
                      logits, labels)
-    return lse, gold
+    return lse, shd.c(gold, shd.dp, None)
 
 
 def _ce_chunk(x, embed, labels, mask, shd: Sharder = NO_SHARD):
@@ -357,6 +361,10 @@ def _ce_chunk(x, embed, labels, mask, shd: Sharder = NO_SHARD):
     labels [B, c] int64, mask [B, c] float32.  With a mesh the chunk's
     logits are vocab-sharded (the reference's constraint)."""
     b, c, d = x.shape
+    # the vocab-sharded product's cotangent of x is a partial sum over
+    # 'model': reduce it here, as the reference's layout does, and not in
+    # the trunk's row-parallel products
+    x = shd.c(x, shd.dp, None, None)
     logits = matmul_f32(x.reshape(b * c, d), embed.t()).view(b, c, -1)
     if shd.mesh is None:
         lse = torch.logsumexp(logits, dim=-1)

@@ -177,6 +177,7 @@ def _qkv(cfg, p, x, shd: Sharder = NO_SHARD, seq=None):
     sequence dim over `seq`."""
     hin = rms_norm(x, p["norm"], cfg.norm_eps)
     if seq is None:
+        hin = shd.c(hin, shd.dp, None, None)
         q, k, v = hin @ p["wq"], hin @ p["wk"], hin @ p["wv"]
     else:
         q, k, v = (_rows_matmul(hin, p[w], shd) for w in ("wq", "wk", "wv"))
@@ -282,7 +283,7 @@ def _attention_seq(cfg, p, x, shd: Sharder = NO_SHARD, *, make_cache=False,
 def _ffn_seq(cfg, p, x, shd: Sharder = NO_SHARD):
     """The FFN sublayer; under a mesh its output is reduced over 'model'
     (the residual stream stays data-sharded and whole)."""
-    hin = rms_norm(x, p["norm"], cfg.norm_eps)
+    hin = shd.c(rms_norm(x, p["norm"], cfg.norm_eps), shd.dp, None, None)
     return shd.c(ffn(hin, p["w1"], p["w2"], p.get("w3")), shd.dp, None, None)
 
 

@@ -18,10 +18,13 @@ launch.roofline) on the CPU.
   axes).  The reference's count per device is exactly the port's count
   of the whole step on a (1, 1) mesh over 8: XLA splits the work with no
   redundancy.  The port's per-device count measured 1.14 times the
-  reference's: where no constraint fixes a layout, DTensor's propagation
-  may run a product at full width on every 'model' rank (gathering a
-  small weight rather than reducing a partial sum), which at this size
-  it prefers.  The bound is 1.0 to 1.2.
+  reference's while the partial cotangents over 'model' (of the loss
+  head's and the sublayers' inputs) were left to DTensor, which gathered
+  a small weight and ran its product at full width on every 'model'
+  rank; the port now reduces them where the reference does, and the
+  count is equal.  The bound is 1.0 to 1.2.
+* the same cell's collectives, kind by kind, against the reference's,
+  with bounds derived from the port's split of them by issuer.
 """
 import json
 import os
@@ -265,6 +268,73 @@ def test_reduced_cell_flops_against_reference():
     ratio = got["flops"] / ref["flops"]
     assert 1.0 <= ratio <= 1.2, (got, ref, ratio)
     assert REF_RECORD_KEYS <= set(got["keys"])
+
+
+def test_reduced_cell_collectives_against_reference():
+    """The same reduced cell's collectives, kind by kind, against the
+    reference's hlo_analysis.analyze (8 forced host devices, Auto axes),
+    both from scripts/dryrun_reference_cell.py --reduced.
+
+    The bounds come from the port's split (`collectives_by_op`) and the
+    two places where the reference's layout reduces more:
+      * every gradient is reduced over 'data' once a microbatch, in both;
+        the port's split shows it as the gradients put in their
+        parameters' placements (`redistribute:fw @ api.py:grad_fn`),
+        exactly the parameters' local bytes times the microbatches;
+      * the reference reduces the tied embedding's loss-head gradient
+        inside the loss-chunk loop, once a chunk (n_mb·n_chunks·V/2·D·4
+        bytes), where the port reduces the whole embedding gradient once
+        a microbatch (counted above);
+      * the reference's remat recompute repeats each FFN output's
+        reduction over 'model' (n_mb·L·(B/n_mb/4)·S·D·4 bytes), which the
+        port's checkpoint does not recompute: it stops at the last saved
+        tensor, before the w2 product;
+    so the port's all-reduce bytes are the reference's less those two,
+    within 1 % of the reference's (scalars: the loss mean and the norm).
+    The port's only all-gathers regroup the token ids into microbatches;
+    the reference gathers the gold logit out of the vocab-sharded logits
+    (take_along_axis: all-gathers and collective-permutes, and their
+    scatter-add transpose), which the port takes on each shard as a
+    partial sum reduced with the logsumexp: at most the reference's
+    all-gather bytes, and no permute.  Reduce-scatter and all-to-all: none
+    on either side.  Counts: XLA's combiner merges each microbatch's
+    gradient reductions into one tuple all-reduce, the port issues one a
+    tensor: at least the reference's count."""
+    name, seq, b, mb = CELL
+    # scripts/dryrun_reference_cell.py lowers both cells (qwen2-0.5b) on
+    # (4, 2) Auto axes and prints them as its last line
+    script = Path(SRC).parent / "scripts" / "dryrun_reference_cell.py"
+    out = subprocess.run(
+        [sys.executable, str(script), "--mesh", "4,2",
+         "--reduced", f"{seq},{b},{mb}"], capture_output=True, text=True,
+        timeout=600, env=_env())
+    assert out.returncode == 0, out.stderr[-3000:]
+    cell = json.loads(out.stdout.strip().splitlines()[-1])
+    assert cell["arch"] == name
+    ref, got = cell["reference"]["collectives"], cell["port"]
+    coll, split = got["collectives"], got["collectives_by_op"]
+    cfg = got["cfg"]
+    L, d, vocab, chunk = (cfg["num_layers"], cfg["d_model"],
+                          cfg["vocab_size"], cfg["loss_chunk"])
+    assert cfg["tie_embeddings"]
+    for kind, parts in split.items():        # the split sums to the kinds
+        assert sum(p["count"] for p in parts.values()) == \
+            coll[kind]["count"], kind
+        assert sum(p["bytes"] for p in parts.values()) == \
+            coll[kind]["bytes"], kind
+    grads = split["all-reduce"]["redistribute:fw @ api.py:grad_fn"]
+    assert grads["bytes"] == mb * got["param_bytes"], (grads, got)
+    embed_per_chunk = mb * (seq // chunk) * (vocab // 2) * d * 4
+    ffn_recompute = mb * L * (b // mb // 4) * seq * d * 4
+    want = ref["all-reduce"]["bytes"] - embed_per_chunk - ffn_recompute
+    assert abs(coll["all-reduce"]["bytes"] - want) <= \
+        0.01 * ref["all-reduce"]["bytes"], (coll, ref, want)
+    assert coll["all-reduce"]["count"] >= ref["all-reduce"]["count"]
+    assert set(split["all-gather"]) == {"redistribute:fw @ nn_ops.py:c"}
+    assert 0 < coll["all-gather"]["bytes"] <= ref["all-gather"]["bytes"]
+    assert coll["collective-permute"] == {"count": 0.0, "bytes": 0.0}
+    for kind in ("reduce-scatter", "all-to-all"):
+        assert coll[kind] == ref[kind] == {"count": 0.0, "bytes": 0.0}
 
 
 def test_roofline_tables_list_every_cell(tmp_path, capsys):

@@ -13,11 +13,17 @@ reference test's own claims on each side, and returns its observations.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from types import SimpleNamespace
 
+import jax.numpy as jnp
+import numpy as np
+import torch
+
 import repro.core as JC
 import repro.core.engine as JENG
+import repro.core.graph as JGRAPH
 import repro.core.matching as JMATCH
 import repro.core.planner as JPLAN
 import repro.core.query as JQ
@@ -30,6 +36,7 @@ import repro.testing as JT
 import repro.testing.faults as JF
 import repro_torch.core as TC
 import repro_torch.core.engine as TENG
+import repro_torch.core.graph as TGRAPH
 import repro_torch.core.matching as TMATCH
 import repro_torch.core.planner as TPLAN
 import repro_torch.core.query as TQ
@@ -74,15 +81,25 @@ class Stack(SimpleNamespace):
         return [self.query(graph, size=size, seed=seed0 + i,
                            n_connection=i % 2, d_c=2) for i in range(n)]
 
+    def table(self, cols, data):
+        """The reference tests' ``mk_table``: int32 rows padded with -1 to
+        a power-of-2 capacity, as this package's array type."""
+        data = np.asarray(data, np.int32).reshape(-1, len(cols))
+        rows = np.full((self.matching._pow2(len(data)), len(cols)), -1,
+                       np.int32)
+        rows[: len(data)] = data
+        return self.matching.Table(cols=tuple(cols),
+                                   rows=self.array(rows), count=len(data))
+
 
 REF = Stack(name="repro", port=False, core=JC, engine_mod=JENG,
-            matching=JMATCH, planner=JPLAN, qmod=JQ, data=JD,
-            obs=JO, metrics=JMET, serve=JS, snapshot=JSNAP, testing=JT,
-            faults=JF)
+            graph_mod=JGRAPH, array=jnp.asarray, matching=JMATCH,
+            planner=JPLAN, qmod=JQ, data=JD, obs=JO, metrics=JMET, serve=JS,
+            snapshot=JSNAP, testing=JT, faults=JF)
 PORT = Stack(name="repro_torch", port=True, core=TC, engine_mod=TENG,
-             matching=TMATCH, planner=TPLAN, qmod=TQ, data=TD,
-             obs=TO, metrics=TMET, serve=TS, snapshot=TSNAP, testing=TT,
-             faults=TF)
+             graph_mod=TGRAPH, array=torch.as_tensor, matching=TMATCH,
+             planner=TPLAN, qmod=TQ, data=TD, obs=TO, metrics=TMET,
+             serve=TS, snapshot=TSNAP, testing=TT, faults=TF)
 
 
 def per_stack(fn):
@@ -108,6 +125,56 @@ def twin(scenario, *args, **kw):
 
 
 # ------------------------- observation helpers ------------------------- #
+def freeze(x):
+    """`x` as plain values that compare exactly across the packages:
+    arrays (numpy, JAX, torch) become (dtype, shape, nested lists);
+    dataclasses, dicts, lists, tuples and sets are walked; numpy scalars
+    become Python numbers."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__, {f.name: freeze(getattr(x, f.name))
+                                   for f in dataclasses.fields(x)})
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    elif isinstance(x, jnp.ndarray):
+        x = np.asarray(x)
+    if isinstance(x, np.ndarray):
+        return (str(x.dtype), x.shape, x.tolist())
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, dict):
+        return {freeze(k): freeze(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return tuple(freeze(v) for v in x)
+    if isinstance(x, (set, frozenset)):
+        return frozenset(freeze(v) for v in x)
+    return x
+
+
+def dataset_view(ds) -> dict:
+    """Everything a Dataset derives from its triples, frozen: identity
+    (digest, version, cache key), delta bookkeeping, the graph's arrays
+    and both CSRs, every NI entry and the stats."""
+    g = ds.graph
+    return freeze({
+        "digest": ds.digest, "version": ds.version,
+        "cache_key": ds.cache_key, "delta_info": ds.delta_info,
+        "touched": ds.touched, "delta_endpoints": ds.delta_endpoints,
+        "literal_forced": ds.literal_forced,
+        "graph": {k: getattr(g, k) for k in (
+            "labels", "node_kind", "src", "dst", "pred", "predicates",
+            "pred_kind", "out_csr", "in_csr")},
+        "ni": (ds.ni.d_max, ds.ni.m, ds.ni.variant, ds.ni.vc_mask,
+               ds.ni.entries),
+        "stats": ds.stats})
+
+
+def table_view(t) -> tuple:
+    """A join's output table: columns, count, truncation, order tag and
+    its rows in order."""
+    return (tuple(int(c) for c in t.cols), int(t.count), bool(t.truncated),
+            t.sort_order, freeze(t.numpy()))
+
+
 def outcome(fut):
     """What a future resolved to: the result set with its serving stamps,
     or the failure's type, phase, reason and cause."""
