@@ -44,7 +44,7 @@ from .graph import RDFGraph
 from .ni_index import NIIndex
 from .matching import (Table, DEFAULT_NESTED_MAX, join_tables, planned_join,
                        dedup_project, empty_table, filter_rows, _pow2)
-from ..obs.trace import NULL_TRACER
+from ..obs.trace import NULL_TRACER, to_host
 from ..kernels import ops
 
 
@@ -274,7 +274,7 @@ class ReachCache:
         eps_arr = np.unique(np.asarray(endpoints).ravel().astype(np.int64))
         if not eps_arr.size:
             return 0
-        eps = set(eps_arr.tolist())
+        eps = set(map(int, eps_arr))
         keys = list(self._lru)
         stale = [False] * len(keys)
         owners, parts = [], []
@@ -461,7 +461,7 @@ def connectivity_mask_vectorized(graph: RDFGraph, ni: NIIndex,
         rows = [torch.from_numpy(x).to(dev) for x in
                 (fa, fa_off.astype(np.int32), bb, bb_off.astype(np.int32))]
         t = lap("upload", t)
-        hit = ops.intersect_any_ragged(*rows, impl=impl).cpu().numpy()
+        hit = to_host(ops.intersect_any_ragged(*rows, impl=impl))
         hit = hit.astype(bool)
         t = lap("kernel", t)
         of = ofa | ofb
@@ -557,7 +557,7 @@ def distinct_column_values(table: Table, col: int) -> np.ndarray:
     these drive the host-side NI gathers)."""
     if table.count == 0:
         return np.empty(0, np.int32)
-    vals = table.rows[: table.count, table.cols.index(col)].cpu().numpy()
+    vals = to_host(table.rows[: table.count, table.cols.index(col)])
     u = np.unique(vals)
     return u[u >= 0].astype(np.int32)
 

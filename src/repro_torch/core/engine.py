@@ -65,7 +65,7 @@ from .planner import (Thresholds, CostModel, PlanDecision, decide,
                       choose_connection_impl)
 from .stats import DatasetStats, connection_selectivity, endpoint_reach
 from ..kernels.ops import bits32, resolve_device
-from ..obs.trace import NULL_TRACER
+from ..obs.trace import NULL_TRACER, to_host
 
 
 @dataclass
@@ -648,8 +648,13 @@ class Engine:
         qs.sorts_avoided = tel.sorts_avoided
 
         pq.executions += 1
+        # the answer's copy to the host, the one large read of every
+        # execution: timed by its own span, and inside total_time
+        with tracer.span("copy_out") as sp:
+            rows = to_host(final.rows[: final.count], counted=False)
+            if sp.live:
+                sp.set(rows=int(rows.shape[0]), bytes=int(rows.nbytes))
         qs.total_time = time.perf_counter() - t0
-        rows = final.rows[: final.count].cpu().numpy()
         return MatchResult(cols=final.cols, rows=rows, stats=qs)
 
     # -------------------------------------------------------------- #
@@ -858,7 +863,7 @@ class Engine:
                         telemetry=tel, record=record_join, info=info,
                         fuse=self.cfg.fuse_joins, tracer=tracer)
                 else:
-                    rows = tab.rows[: tab.count].cpu().numpy()
+                    rows = to_host(tab.rows[: tab.count])
                     a = rows[:, tab.cols.index(c.src)]
                     b = rows[:, tab.cols.index(c.dst)]
                     keep = connectivity_mask(self.graph, self.ni, a, b,
@@ -915,7 +920,7 @@ class Engine:
                     # materialized rows to the budget here
                     ck(rows=joined.count, cap=joined.cap)
                     if joined.count:
-                        rows = joined.rows[: joined.count].cpu().numpy()
+                        rows = to_host(joined.rows[: joined.count])
                         a = rows[:, joined.cols.index(c.src)]
                         b = rows[:, joined.cols.index(c.dst)]
                         keep = connectivity_mask(self.graph, self.ni,

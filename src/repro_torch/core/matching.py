@@ -31,7 +31,9 @@ counts sorts performed vs. avoided.
 ``jnp.nonzero(size=, fill_value=)`` becomes ``compact_indices`` (an int32
 cumsum and a scatter, no host sync).  The host syncs are the reference's:
 the mask sums, one total per fused join, the window size and total of the
-radix join, the count vector of the staged join.
+radix join, the count vector of the staged join.  Each is a read through
+``obs.trace.to_host``, which a live tracer counts on the query's
+``execute`` segment.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import torch
 
 from .graph import RDFGraph
 from .decompose import DTree
-from ..obs.trace import NULL_TRACER
+from ..obs.trace import NULL_TRACER, to_host
 from ..kernels import ops as kops
 from ..kernels import fused_join as kfused
 from ..kernels import radix_join as krad
@@ -98,7 +100,7 @@ class CandidateTable:
         return self.rows.device
 
     def numpy(self) -> np.ndarray:
-        return self.rows[: self.count].cpu().numpy()
+        return to_host(self.rows[: self.count])
 
     def result_set(self) -> set[tuple[int, ...]]:
         """Deduplicated rows in *canonical* column order (columns sorted
@@ -225,7 +227,7 @@ def edge_pairs(graph: RDFGraph, pred_id: int | None,
     mask = _edge_pairs_mask(src, dst, pred, p, pass_src, pass_dst)
     if cols[0] == cols[1]:      # query self-loop: s == d, single column
         mask = mask & (src == dst)
-        count = int(mask.sum())
+        count = int(to_host(mask.sum()))
         cap2 = cap or _pow2(count)
         if count > cap2:
             raise CapacityOverflow(count)
@@ -233,7 +235,7 @@ def edge_pairs(graph: RDFGraph, pred_id: int | None,
         idx = compact_indices(mask, cap2, e)
         s = src[torch.clamp(idx, max=e - 1)].masked_fill(idx >= e, -1)
         return Table(cols=(cols[0],), rows=s[:, None], count=count)
-    count = int(mask.sum())
+    count = int(to_host(mask.sum()))
     if cap is None:
         cap = _pow2(count)
     if count > cap:
@@ -421,7 +423,7 @@ def _join_sorted(a: Table, b: Table, shared, new, cap, row_limit,
         # int64 avoids the int32 wrap of a skewed >2^31-match join, and the
         # same array serves the capacity check, the overflow clip and the
         # exact-size retry.
-        cnt_np = cnt.cpu().numpy()
+        cnt_np = to_host(cnt)
     else:
         a_rows_s, b_rows_s = resume.a_rows_s, resume.b_rows_s
         start, cnt, cnt_np = resume.start, resume.cnt, resume.cnt_np
@@ -486,7 +488,7 @@ def _join_sorted_fused(a: Table, b: Table, a_sel, b_sel, key_cols,
         telemetry.sorts_performed += 2
     a.cache_run(key_cols, a_rows_s, a_keys_s, "a")
     b.cache_run(key_cols, b_rows_s, b_keys_s, "b")
-    total = int(total_dev)          # the ONE host sync of this join
+    total = int(to_host(total_dev))     # the ONE host sync of this join
     out_count = total if row_limit is None else min(total, row_limit)
     truncated = row_limit is not None and total > row_limit
     if cap is None:
@@ -496,7 +498,7 @@ def _join_sorted_fused(a: Table, b: Table, a_sel, b_sel, key_cols,
     elif out_count > cap:
         err = CapacityOverflow(out_count)
         err.resume = _ProbeResume(a_rows_s, b_rows_s, start, cnt,
-                                  cnt.cpu().numpy(), key_cols)
+                                  to_host(cnt), key_cols)
         raise err
     return Table(cols=out_cols, rows=rows, count=out_count,
                  truncated=truncated, sort_order=key_cols)
@@ -539,14 +541,14 @@ def _join_radix(a: Table, b: Table, shared, new, cap, row_limit,
         bits = _radix_bits(b.count)
         b_keys_p, b_rows_p, edges, maxlen = krad.radix_partition(
             b_keys, b.rows, bits)
-        lmax = _pow2(int(maxlen), lo=8)     # one scalar sync (window size)
+        lmax = _pow2(int(to_host(maxlen)), lo=8)  # a scalar sync (window)
         if a.cap * lmax > RADIX_WORK_MAX:
             return _join_sorted(a, b, shared, new, cap, row_limit,
                                 probe_impl, telemetry=telemetry, fuse=fuse)
         lt, cnt, win_start = kops.radix_probe(a_keys, b_keys_p, edges,
                                               bits=bits, lmax=lmax,
                                               impl=probe_impl)
-        total = int(cnt.sum())              # second scalar sync (total)
+        total = int(to_host(cnt.sum()))     # second scalar sync (total)
     else:
         b_rows_p, lt, cnt = resume.b_rows_p, resume.lt, resume.cnt
         win_start = resume.win_start
@@ -604,7 +606,7 @@ def _join_nested(a: Table, b: Table, shared, new, cap, chunk, b_chunk,
         for start in range(0, max(a.count, 1), chunk):
             a_rows = a.rows[start:start + chunk]
             eq = _join_chunk_mask(a_rows, b_rows_t, a_sel, b_sel)
-            cnt = int(eq.sum())
+            cnt = int(to_host(eq.sum()))
             if cnt == 0:
                 continue
             if row_limit is not None:
@@ -862,7 +864,7 @@ def injective_filter(table: Table) -> Table:
     if not pairs:
         return table
     keep = _injective_keep(table.rows, pairs)
-    kept = int(keep.sum())
+    kept = int(to_host(keep.sum()))
     if kept == table.count:
         return table
     return filter_rows(table, keep, kept=kept)
@@ -895,7 +897,7 @@ def dedup_project(table: Table, cols: tuple[int, ...],
     cols = tuple(cols)
     sel = tuple(table.cols.index(c) for c in cols)
     proj, keep, kept_dev = kfused.lexsort_distinct(table.rows, sel)
-    kept = int(kept_dev)
+    kept = int(to_host(kept_dev))
     rows = _filter_gather(proj, keep, _pow2(kept))
     return Table(cols=cols, rows=rows, count=kept, truncated=table.truncated,
                  sort_order=cols)
@@ -921,7 +923,7 @@ def filter_rows(table: Table, keep, kept: int | None = None) -> Table:
         k[:n] = np.asarray(keep, bool)
         keep = torch.as_tensor(k, device=table.device)
     if kept is None:
-        kept = int(keep.sum())
+        kept = int(to_host(keep.sum()))
     cap = _pow2(kept)
     rows = _filter_gather(table.rows, keep, cap)
     # compaction is order-preserving: the sort-order tag carries across

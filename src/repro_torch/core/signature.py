@@ -28,6 +28,7 @@ from .graph import RDFGraph
 from .ni_index import NIIndex
 from .query import QueryTemplate
 from ..kernels import ops
+from ..obs.trace import to_host
 
 
 @dataclass
@@ -165,7 +166,7 @@ def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
     if not segments:
         return out
     ok = ops.interval_check(segments, lo, hi, impl=impl, chunk=chunk)
-    return ok.cpu().numpy()
+    return to_host(ok)
 
 
 # ---------------------------------------------------------------------- #
@@ -237,4 +238,4 @@ def bloom_prefilter(sigs: torch.Tensor, entry, reqs: NodeReqs,
     required = np.asarray([e[0] for e in exact], np.int64)
     qsig = ops.bits32(bloom_query_sig(required)).to(device)
     ok = ops.bitmask_contains(sigs[lo:hi], qsig, impl=impl)
-    return ok.cpu().numpy().astype(bool) | entry.overflow[lo:hi]
+    return to_host(ok).astype(bool) | entry.overflow[lo:hi]

@@ -24,8 +24,10 @@ query per template — every one should hit the plan cache warm:
         --governed --snapshot /tmp/serve.snap
 
 Observability: ``--trace PATH`` records every query (one trace id from
-submit through batching, governor routing, and each engine join) and
-exports a Chrome trace viewable in chrome://tracing or ui.perfetto.dev;
+submit through batching, governor routing, each engine join and the
+answer's copy to the host) and exports a Chrome trace viewable in
+chrome://tracing or ui.perfetto.dev, on ``torch.profiler``'s clock
+(Unix-epoch microseconds), so it overlays a profiler trace of the run;
 ``--explain`` prints each template's EXPLAIN report — the §4.3 check
 decision with its τ terms, the Selinger join order, and the learned
 join sequence with estimated-vs-observed rows:
@@ -85,7 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="trace every query and export a Chrome trace "
                          "(chrome://tracing / Perfetto) to PATH after "
-                         "the stream")
+                         "the stream, on torch.profiler's clock "
+                         "(Unix-epoch microseconds): it overlays a "
+                         "profiler trace of the same run")
     ap.add_argument("--explain", action="store_true",
                     help="print the EXPLAIN report (check decision, "
                          "join order, learned join sizes) for each "

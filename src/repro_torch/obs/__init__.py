@@ -1,9 +1,11 @@
 """Observability: per-query tracing, a metrics registry, and EXPLAIN.
 
   * `trace`   — `Tracer` with nestable spans and a ring buffer of
-                completed traces, exportable as Chrome-trace JSON;
-                `NULL_TRACER` is the ~zero-cost disabled variant the
-                engine carries by default.
+                completed traces, on torch.profiler's clock, exportable
+                as Chrome-trace JSON; `NULL_TRACER` is the ~zero-cost
+                disabled variant the engine carries by default;
+                `trace.to_host` is the engine's one read of the device,
+                counted on the open ``execute`` segment.
   * `metrics` — `MetricsRegistry` of counters / gauges / log-bucketed
                 histograms with a pinned snapshot schema (feeds
                 `QueryServer.telemetry()["metrics"]`).

@@ -18,10 +18,22 @@ Cost discipline: the hot path must pay ~zero when tracing is off.
 allocation, no clock read, no dict update.  Callers that compute span
 attrs guard on ``span.live`` so attr construction is skipped too.
 
-Clocks are monotonic (`time.perf_counter`); wall-clock never appears in
-span timing.  ``export_chrome(path)`` writes the Chrome trace event
-format (one ``ph: "X"`` complete event per span, pid 1, one tid per
-trace) loadable in chrome://tracing or Perfetto.
+Clock: spans are stamped on the base of ``torch.profiler``'s events,
+Unix-epoch nanoseconds (``Span.start_ns``, ``Span.end_ns``), so a span
+and the device work inside it can be compared directly.  Durations come
+from the monotonic ``time.perf_counter_ns``: each segment takes an
+anchor (the offset of ``time.time_ns`` from it) when it opens, and its
+spans add that anchor, so wall-clock steps cannot bend a duration and
+drift between the clocks cannot build up past one segment.
+``export_chrome(path)`` writes the Chrome trace event format (one
+``ph: "X"`` complete event per span, pid 1, one tid per trace) in
+microseconds on that base, loadable in chrome://tracing or Perfetto
+beside a ``torch.profiler`` trace of the same run.
+
+Device reads: `to_host` is the engine's one way to copy a tensor to the
+host.  Inside a live tracer's ``execute`` segment it counts each read
+(``host_syncs``) and the nanoseconds the host was blocked in it
+(``sync_wait_ns``) on the segment's attrs.
 
 Stdlib-only: imported by ``repro_torch.core`` without creating an import cycle.
 """
@@ -51,13 +63,26 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+def _anchor_ns() -> int:
+    """``time.time_ns()`` less ``time.perf_counter_ns()``: the offset that
+    puts a monotonic reading on the Unix-epoch base of ``torch.profiler``'s
+    events.  The wall clock is read between two monotonic reads, so the
+    offset is off by at most half their gap."""
+    a = time.perf_counter_ns()
+    wall = time.time_ns()
+    b = time.perf_counter_ns()
+    return wall - (a + b) // 2
+
+
 class Span:
     """One timed operation inside a trace.  Root spans (segments) have
     parent None; nested spans record their parent for structure checks.
     Use as a context manager; an exception propagating through stamps
-    ``error`` with the exception type name and never swallows it."""
-    __slots__ = ("name", "parent", "start", "end", "attrs", "error",
-                 "_trace", "_tracer")
+    ``error`` with the exception type name and never swallows it.
+    ``start_ns`` and ``end_ns`` are Unix-epoch nanoseconds, the base of
+    ``torch.profiler``'s events (module docstring)."""
+    __slots__ = ("name", "parent", "start_ns", "end_ns", "attrs", "error",
+                 "_anchor", "_trace", "_tracer")
     live = True
 
     def __init__(self, tracer: "Tracer", name: str, trace: "Trace",
@@ -68,8 +93,10 @@ class Span:
         self.parent = parent
         self.attrs = attrs
         self.error: str | None = None
-        self.end: float | None = None
-        self.start = time.perf_counter()
+        self.end_ns: int | None = None
+        # a segment takes a fresh anchor; its spans share it
+        self._anchor = _anchor_ns() if parent is None else parent._anchor
+        self.start_ns = time.perf_counter_ns() + self._anchor
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
@@ -81,16 +108,20 @@ class Span:
 
     @property
     def duration_s(self) -> float:
-        return (self.end if self.end is not None
-                else time.perf_counter()) - self.start
+        end = (self.end_ns if self.end_ns is not None
+               else time.perf_counter_ns() + self._anchor)
+        return (end - self.start_ns) * 1e-9
 
     def __enter__(self) -> "Span":
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        global _execute
         if exc_type is not None:
             self.error = exc_type.__name__
-        self.end = time.perf_counter()
+        self.end_ns = time.perf_counter_ns() + self._anchor
+        if _execute is self:
+            _execute = None
         stack = self._tracer._stack
         if stack and stack[-1] is self:
             stack.pop()
@@ -102,27 +133,41 @@ class Span:
         return False
 
 
+# The ``execute`` segment a live Tracer has open, where `to_host` counts
+# its reads; None while tracing is off.  Module state, not a Tracer's: the
+# reads sit in join helpers that carry no tracer.  Serving is
+# single-threaded, and the segment's exit clears it.
+_execute: Span | None = None
+
+
+def to_host(t, counted: bool = True):
+    """Tensor ``t`` copied to the host as a NumPy array: the engine's one
+    way to read the device (``int(to_host(x))`` reads a count).  Inside a
+    live tracer's ``execute`` segment each counted read adds 1 to the
+    segment's ``host_syncs`` attr and the nanoseconds the host waited in
+    it (for the device's queued work and the copy) to ``sync_wait_ns``.
+    The answer's own copy passes ``counted=False``: its ``copy_out`` span
+    times it."""
+    seg = _execute
+    if seg is None or not counted:
+        return t.cpu().numpy()
+    t0 = time.perf_counter_ns()
+    out = t.cpu().numpy()
+    waited = time.perf_counter_ns() - t0
+    attrs = seg.attrs
+    attrs["host_syncs"] = attrs.get("host_syncs", 0) + 1
+    attrs["sync_wait_ns"] = attrs.get("sync_wait_ns", 0) + waited
+    return out
+
+
 class Trace:
     """All spans of one query, across its segments."""
-    __slots__ = ("trace_id", "attrs", "spans", "created", "finished_at")
+    __slots__ = ("trace_id", "attrs", "spans")
 
     def __init__(self, trace_id: str, attrs: dict):
         self.trace_id = trace_id
         self.attrs = attrs
         self.spans: list[Span] = []
-        self.created = time.perf_counter()
-        self.finished_at: float | None = None
-
-    @property
-    def wall_s(self) -> float:
-        end = self.finished_at
-        if end is None:
-            end = max((s.end for s in self.spans
-                       if s.end is not None), default=self.created)
-        return end - self.created
-
-    def roots(self) -> list[Span]:
-        return [s for s in self.spans if s.parent is None]
 
 
 def _jsonable(v):
@@ -174,12 +219,15 @@ class Tracer:
         return self._open(name, parent._trace, parent, attrs)
 
     def _open(self, name, trace, parent, attrs):
+        global _execute
         if len(trace.spans) >= self.max_spans_per_trace:
             self.dropped_spans += 1
             return NULL_SPAN
         span = Span(self, name, trace, parent, attrs)
         trace.spans.append(span)
         self._stack.append(span)
+        if parent is None and name == "execute":
+            _execute = span
         return span
 
     def finish(self, trace_id: str | None) -> Trace | None:
@@ -187,7 +235,6 @@ class Tracer:
             return None
         trace = self._active.pop(trace_id, None)
         if trace is not None:
-            trace.finished_at = time.perf_counter()
             self.finished.append(trace)
         return trace
 
@@ -210,20 +257,19 @@ class Tracer:
     # -------------------------------------------------------------- #
     def to_chrome(self, include_active: bool = True) -> dict:
         """Chrome trace event format: one complete ("X") event per span,
-        timestamps/durations in microseconds relative to the earliest
-        span, pid 1, one tid per trace (named by a metadata event)."""
+        pid 1, one tid per trace (named by a metadata event).  ``ts`` and
+        ``dur`` are microseconds, ``ts`` on the Unix-epoch base of
+        ``torch.profiler``'s events."""
         traces = list(self.finished)
         if include_active:
             traces += list(self._active.values())
         events = []
-        starts = [s.start for tr in traces for s in tr.spans]
-        t0 = min(starts) if starts else 0.0
         for tid, tr in enumerate(traces, start=1):
             events.append({"name": "thread_name", "ph": "M",
                            "pid": 1, "tid": tid,
                            "args": {"name": f"query {tr.trace_id}"}})
             for s in tr.spans:
-                end = s.end if s.end is not None else s.start
+                end = s.end_ns if s.end_ns is not None else s.start_ns
                 args = {"trace_id": tr.trace_id}
                 for k, v in s.attrs.items():
                     args[k] = _jsonable(v)
@@ -231,8 +277,8 @@ class Tracer:
                     args["error"] = s.error
                 events.append({
                     "name": s.name, "ph": "X",
-                    "ts": (s.start - t0) * 1e6,
-                    "dur": max(end - s.start, 0.0) * 1e6,
+                    "ts": s.start_ns / 1e3,
+                    "dur": max(end - s.start_ns, 0) / 1e3,
                     "pid": 1, "tid": tid, "args": args,
                 })
         return {"traceEvents": events, "displayTimeUnit": "ms"}

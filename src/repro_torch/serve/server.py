@@ -150,8 +150,11 @@ class QueryServer:
 
     `tracer` (an obs.trace.Tracer) enables per-query tracing: every
     submission gets a trace id and its submit/prepare/governor/engine
-    spans, exportable via `tracer.export_chrome(path)`; None keeps the
-    ~zero-cost NULL_TRACER.  `slow_query_s` retains any query slower
+    spans (the answer's copy to the host as ``copy_out``; each
+    ``execute`` segment counts the engine's device reads and the time
+    blocked in them as ``host_syncs`` and ``sync_wait_ns``), on
+    torch.profiler's clock, exportable via `tracer.export_chrome(path)`;
+    None keeps the ~zero-cost NULL_TRACER.  `slow_query_s` retains any query slower
     than the threshold in a bounded slow-query log with its rendered
     EXPLAIN (`slow_queries()`).  `latency_window` is accepted for
     API compatibility; latency percentiles now come from the metrics

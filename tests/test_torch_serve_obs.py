@@ -5,15 +5,17 @@ reference (twin of the metrics, serving and EXPLAIN parts of
 The metrics registry and the EXPLAIN renderer are stdlib copies; the twin
 feeds both the same observations and the same request streams and holds
 equal the registry snapshots, the server's counters and gauges, the span
-names of every query's trace, the rung histories of typed errors, and the
-EXPLAIN text with its ``prepare_time`` masked.
+names of every query's trace (less the port's own spans and attrs,
+``torch_twin.PORT_ONLY_TRACE``), the rung histories of typed errors, and
+the EXPLAIN text with its ``prepare_time`` masked.
 """
 import json
 
 import pytest
 
-from torch_twin import (PORT, REF, forcing_cfg, mask_explain, outcomes,
-                        per_stack, telemetry_view, twin)
+from torch_twin import (PORT, REF, chrome_events, forcing_cfg,
+                        mask_explain, outcomes, per_stack, telemetry_view,
+                        trace_spans, twin)
 
 
 @per_stack
@@ -90,8 +92,7 @@ def test_traced_and_untraced_servers_agree():
             out.append(a.result_set())
         assert len(srv_b.tracer.finished) == len(pool)
         assert len(S.obs.NULL_TRACER.finished) == 0
-        return out, [[s.name for s in t.spans]
-                     for t in srv_b.tracer.finished]
+        return out, [trace_spans(t) for t in srv_b.tracer.finished]
     twin(scenario)
 
 
@@ -110,14 +111,16 @@ def test_end_to_end_chaos_trace_export(tmp_path):
         path = tmp_path / f"{S.name}.json"
         info = tr.export_chrome(path)
         doc = json.loads(path.read_text())
+        assert info["events"] == len(doc["traceEvents"])
+        events = chrome_events(doc)
         by_trace: dict = {}
-        for ev in doc["traceEvents"]:
+        for ev in events:
             if ev["ph"] == "X":
                 by_trace.setdefault(ev["args"]["trace_id"], []).append(
                     (ev["name"], sorted(ev["args"])))
         names = {n for evs in by_trace.values() for n, _ in evs}
         assert {"breaker", "ladder", "rung", "join"} <= names
-        return (got, info["traces"], info["events"],
+        return (got, info["traces"], len(events),
                 [f.trace_id for f in futs], by_trace)
     twin(scenario)
 

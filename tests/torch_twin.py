@@ -202,6 +202,32 @@ def run_stats(res) -> dict:
     return {k: v for k, v in d.items() if not k.endswith("_time")}
 
 
+# What the port's traces hold beyond the reference's, and the one thing a
+# trace comparison drops: the span of the answer's copy to the host
+# (``copy_out``, with its ``rows`` and ``bytes``), and the ``execute``
+# segment's count of the engine's device reads (``host_syncs``) and the
+# host time blocked in them (``sync_wait_ns``).
+PORT_ONLY_TRACE = ("copy_out", "host_syncs", "sync_wait_ns")
+
+
+def trace_spans(trace) -> list:
+    """A finished trace's span names in order, without the port's own."""
+    return [s.name for s in trace.spans if s.name not in PORT_ONLY_TRACE]
+
+
+def chrome_events(doc) -> list:
+    """A Chrome trace export's events without the port's own spans, and
+    their args without the port's own keys."""
+    out = []
+    for ev in doc["traceEvents"]:
+        if ev["name"] in PORT_ONLY_TRACE:
+            continue
+        ev = dict(ev, args={k: v for k, v in ev["args"].items()
+                            if k not in PORT_ONLY_TRACE})
+        out.append(ev)
+    return out
+
+
 def mask_explain(text: str) -> str:
     return re.sub(r"prepare_time=\S+", "prepare_time=*", text)
 
