@@ -30,10 +30,13 @@ exits non-zero without its final line:
             each entry: the padded rows of reach_sets, and
             intersect_any_ragged on the ragged rows of the conn path's
             gather at P = 1,024 and at P = 65,536, the second also timed
-            with L2 flushed
+            with L2 flushed.  row_select has two rows, a count launch and
+            a compaction launch each: the edge scan of one D-tree edge
+            (row_select_edges) and the injective filter of a 2^20 x 6
+            table (row_select_distinct)
   main      12 RDF-h queries (the last 4 with a connection edge) through
             Dataset.engine("rdf_h") -> Engine.execute on the card, cold
-            then warm; each of the four kernels of this path must have
+            then warm; each of the five kernels of this path must have
             launched during this phase, the check must launch
             interval_count at most once per call cold and never warm,
             every join expand must be exactly one expand_segments
@@ -279,7 +282,7 @@ REPEATS = 5
 
 # the kernels each path must launch
 MAIN_KERNELS = ("merge_probe", "expand_segments", "window_probe",
-                "interval_count")
+                "interval_count", "row_select")
 BLOOM_KERNELS = ("bitmask_contains",)
 CONN_KERNELS = ("intersect_any",)
 
@@ -838,6 +841,7 @@ def kernel_phase(ds, rng) -> list:
         rng.integers(0, ds.graph.num_nodes, big))
     for name, host in ragged.items():
         record_ragged(out, name, host, dev)
+    record_row_select(out, ds, rng, dev)
     emit({"phase": "kernels", "cap": entry.cap,
           "shapes": {"merge_probe": [n, n], "expand_segments": [n, cap],
                      "expand_gather": out[2]["shape"],
@@ -858,6 +862,73 @@ def kernel_phase(ds, rng) -> list:
     del sigs
     torch.cuda.empty_cache()
     return out
+
+
+def record_row_select(out, ds, rng, dev) -> None:
+    """The two row_select rows, each a count launch and a compaction launch
+    at the engine's capacity against the plain composition on the card:
+    row_select_edges, the edge scan of one D-tree edge over the graph's
+    edges (the commonest predicate, a mask on the source and an interval
+    on the target, the two forms the main path passes), and
+    row_select_distinct, the injective filter of a 2^20 x 6 table (the
+    size at which a join is cut) whose last column repeats the first's
+    query node, 1 % padding rows among the others.  Bytes: what the
+    inputs need (the predicate of every edge, the ends and the source's
+    mask byte of the edges with that predicate; every row), the keep
+    bitmap written and read, the kept items read and the output written."""
+    import numpy as np
+    import torch
+    from repro_torch.core.matching import _pow2, graph_edges
+    from repro_torch.kernels import ops, row_select as rsel
+
+    src, dst, pred = graph_edges(ds.graph, dev)
+    n_nodes, e = ds.graph.num_nodes, int(src.shape[0])
+    pred_id = int(np.bincount(ds.graph.pred).argmax())
+    n_pred = int((ds.graph.pred == pred_id).sum())
+    mask = torch.as_tensor(rng.random(n_nodes) < 0.5, device=dev)
+    iv = (0, n_nodes // 2)
+    kept = int(rsel.edge_select_ref(src, dst, pred, pred_id, mask, iv,
+                                    False).total)
+    cap = _pow2(kept)
+
+    def edges():
+        return ops.edge_select(src, dst, pred, pred_id, mask, iv).rows(cap)
+
+    def edges_plain():
+        return rsel.edge_select_ref(src, dst, pred, pred_id, mask, iv,
+                                    False).rows(cap)
+    row = record_row(out, "row_select_edges", "row_select.cu",
+                     "none: jnp ops of src/repro/core/matching.py:edge_pairs",
+                     edges, edges_plain, None,
+                     4 * e + 9 * n_pred + e // 4 + 8 * (kept + cap),
+                     e + 3 * n_pred, (edges(),), (edges_plain(),),
+                     counter="row_select")
+    row["shape"] = {"edges": e, "with_pred": n_pred, "kept": kept,
+                    "cap": cap}
+
+    n, cols = 1 << 20, (1, 2, 3, 4, 5, 1)
+    host = rng.integers(0, 64, (n, 6)).astype(np.int32)
+    host[:, 5] = host[:, 0]
+    host[rng.random(n) < 0.01] = -1
+    rows = torch.as_tensor(host, device=dev)
+    pairs = tuple((i, j) for i in range(6) for j in range(i + 1, 6)
+                  if cols[i] != cols[j])
+    kept = int(rsel.distinct_select_ref(rows, pairs).total)
+    cap = _pow2(kept)
+
+    def distinct():
+        return ops.distinct_select(rows, pairs).rows(cap)
+
+    def distinct_plain():
+        return rsel.distinct_select_ref(rows, pairs).rows(cap)
+    row = record_row(out, "row_select_distinct", "row_select.cu",
+                     "none: jnp ops of src/repro/core/matching.py:"
+                     "injective_filter", distinct, distinct_plain, None,
+                     24 * n + n // 4 + 24 * (kept + cap), len(pairs) * n,
+                     (distinct(),), (distinct_plain(),),
+                     counter="row_select")
+    row["shape"] = {"rows": n, "k": 6, "pairs": len(pairs), "kept": kept,
+                    "cap": cap}
 
 
 def ragged_rows(ni, a_nodes, b_nodes, chunk: int = 1024):

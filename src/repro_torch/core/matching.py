@@ -28,10 +28,16 @@ re-runs only the expand.  `sort_order` tags and cached sorted runs let a
 chain of joins on one key sort each side at most once; JoinTelemetry
 counts sorts performed vs. avoided.
 
-``jnp.nonzero(size=, fill_value=)`` becomes ``compact_indices`` (an int32
-cumsum and a scatter, no host sync).  The host syncs are the reference's:
-the mask sums, one total per fused join, the window size and total of the
-radix join, the count vector of the staged join.  Each is a read through
+Row selection (the edge scan of ``edge_pairs``, the injective filter,
+``filter_rows`` and ``dedup_project``: a keep mask, its sum and
+``jnp.nonzero(size=, fill_value=)`` with a gather in the reference) goes
+through ``kernels.ops``' ``edge_select`` / ``distinct_select`` /
+``masked_select``: on CUDA a count launch and an ordered-compaction launch
+around the one read of the count.  Elsewhere ``jnp.nonzero`` becomes
+``compact_indices`` (an int32 cumsum and a scatter, no host sync).  The
+host syncs are the reference's: the kept counts, one total per fused
+join, the window size and total of the radix join, the count vector of
+the staged join.  Each is a read through
 ``obs.trace.to_host``, which a live tracer counts on the query's
 ``execute`` segment.
 """
@@ -176,28 +182,6 @@ def _spec_device(*specs):
     return torch.device("cpu")
 
 
-def _pass(spec, ids: torch.Tensor) -> torch.Tensor:
-    """Endpoint pass test: a full-[N] bool mask, or a (lo, hi) interval
-    pair — wildcard candidate sets stay intervals so no [N] mask is ever
-    materialized for them."""
-    if isinstance(spec, tuple):
-        return (ids >= spec[0]) & (ids < spec[1])
-    return spec[ids]
-
-
-def _edge_pairs_mask(src, dst, pred, pred_id: int, pass_src, pass_dst):
-    m = _pass(pass_src, src) & _pass(pass_dst, dst)
-    return m & (pred == pred_id) if pred_id >= 0 else m
-
-
-def _edge_pairs_gather(mask, src, dst, cap):
-    e = src.shape[0]
-    idx = compact_indices(mask, cap, e)
-    safe = torch.clamp(idx, max=e - 1)
-    pad = (idx >= e)[:, None]
-    return torch.stack([src[safe], dst[safe]], dim=1).masked_fill(pad, -1)
-
-
 def _join_gather(eq, a_rows, b_rows, new_sel, size, has_new):
     nb = eq.shape[1]
     idx = compact_indices(eq.reshape(-1), size, -1)
@@ -219,29 +203,23 @@ def edge_pairs(graph: RDFGraph, pred_id: int | None,
     specs satisfied.  A spec is a full-[N] bool mask or a (lo, hi)
     interval pair (wildcard candidates).  `edges` are the graph's device
     edge tensors (``graph_edges``); without them the edges are uploaded to
-    the device of a mask spec.  Returns a 2-column table."""
+    the device of a mask spec.  Returns a 2-column table, or a 1-column
+    one for a query self-loop (s == d).  One count pass, one host read of
+    the count and one compaction (``kernels.ops.edge_select``)."""
     if edges is None:
         edges = graph_edges(graph, _spec_device(pass_src, pass_dst))
     src, dst, pred = edges
-    p = -1 if pred_id is None else int(pred_id)
-    mask = _edge_pairs_mask(src, dst, pred, p, pass_src, pass_dst)
-    if cols[0] == cols[1]:      # query self-loop: s == d, single column
-        mask = mask & (src == dst)
-        count = int(to_host(mask.sum()))
-        cap2 = cap or _pow2(count)
-        if count > cap2:
-            raise CapacityOverflow(count)
-        e = graph.num_edges
-        idx = compact_indices(mask, cap2, e)
-        s = src[torch.clamp(idx, max=e - 1)].masked_fill(idx >= e, -1)
-        return Table(cols=(cols[0],), rows=s[:, None], count=count)
-    count = int(to_host(mask.sum()))
-    if cap is None:
+    loop = cols[0] == cols[1]
+    sel = kops.edge_select(src, dst, pred,
+                           -1 if pred_id is None else int(pred_id),
+                           pass_src, pass_dst, self_loop=loop)
+    count = int(to_host(sel.total))
+    if cap is None or (loop and not cap):   # the reference's two rules
         cap = _pow2(count)
     if count > cap:
         raise CapacityOverflow(count)
-    rows = _edge_pairs_gather(mask, src, dst, cap)
-    return Table(cols=cols, rows=rows, count=count)
+    return Table(cols=cols[:1] if loop else cols, rows=sel.rows(cap),
+                 count=count)
 
 
 # ---------------------------------------------------------------------- #
@@ -846,16 +824,11 @@ def dtree_candidates(graph: RDFGraph, tree: DTree,
     return table
 
 
-def _injective_keep(rows, pairs):
-    keep = rows[:, 0] >= 0                  # padding rows never survive
-    for i, j in pairs:
-        keep &= rows[:, i] != rows[:, j]
-    return keep
-
-
 def injective_filter(table: Table) -> Table:
     """Keep rows whose values are pairwise distinct across distinct query
-    nodes (subgraph-isomorphism semantics)."""
+    nodes (subgraph-isomorphism semantics): one count pass, one host read
+    of the kept count and, unless every row is kept, one compaction
+    (``kernels.ops.distinct_select``)."""
     k = len(table.cols)
     if k < 2 or table.count == 0:
         return table
@@ -863,18 +836,13 @@ def injective_filter(table: Table) -> Table:
                   if table.cols[i] != table.cols[j])
     if not pairs:
         return table
-    keep = _injective_keep(table.rows, pairs)
-    kept = int(to_host(keep.sum()))
+    sel = kops.distinct_select(table.rows, pairs)
+    kept = int(to_host(sel.total))
     if kept == table.count:
         return table
-    return filter_rows(table, keep, kept=kept)
-
-
-def _filter_gather(rows, keep, cap_out):
-    cap_in = rows.shape[0]
-    idx = compact_indices(keep, cap_out, cap_in)
-    safe = torch.clamp(idx, max=cap_in - 1)
-    return rows[safe].masked_fill((idx >= cap_in)[:, None], -1)
+    # compaction is order-preserving: the sort-order tag carries across
+    return Table(cols=table.cols, rows=sel.rows(_pow2(kept)), count=kept,
+                 truncated=table.truncated, sort_order=table.sort_order)
 
 
 def empty_table(cols: tuple[int, ...], cap: int = 64, *,
@@ -898,7 +866,7 @@ def dedup_project(table: Table, cols: tuple[int, ...],
     sel = tuple(table.cols.index(c) for c in cols)
     proj, keep, kept_dev = kfused.lexsort_distinct(table.rows, sel)
     kept = int(to_host(kept_dev))
-    rows = _filter_gather(proj, keep, _pow2(kept))
+    rows = kops.masked_select(proj, keep).rows(_pow2(kept))
     return Table(cols=cols, rows=rows, count=kept, truncated=table.truncated,
                  sort_order=cols)
 
@@ -913,19 +881,13 @@ def filter_rows(table: Table, keep, kept: int | None = None) -> Table:
         raise ValueError(f"keep mask length {n} matches neither "
                          f"count={table.count} nor cap={table.cap}")
     if isinstance(keep, torch.Tensor):
-        keep = keep.to(device=table.device, dtype=torch.bool)
-        if n != table.cap:
-            keep = torch.cat([keep, torch.zeros(table.cap - n,
-                                                dtype=torch.bool,
-                                                device=table.device)])
+        keep = keep.to(device=table.device, dtype=torch.bool).contiguous()
     else:
-        k = np.zeros(table.cap, bool)
-        k[:n] = np.asarray(keep, bool)
-        keep = torch.as_tensor(k, device=table.device)
+        keep = torch.as_tensor(np.asarray(keep, bool), device=table.device)
+    sel = kops.masked_select(table.rows, keep)
     if kept is None:
-        kept = int(to_host(keep.sum()))
-    cap = _pow2(kept)
-    rows = _filter_gather(table.rows, keep, cap)
+        kept = int(to_host(sel.total))
+    rows = sel.rows(_pow2(kept))
     # compaction is order-preserving: the sort-order tag carries across
     return Table(cols=table.cols, rows=rows, count=kept,
                  truncated=table.truncated, sort_order=table.sort_order)

@@ -193,6 +193,44 @@ def intersect_any_ragged(a_ids, a_off, b_ids, b_off, *, impl: str = "auto"):
     return _ref.intersect_any_ragged_ref(a_ids, a_off, b_ids, b_off)
 
 
+def edge_select(src, dst, pred, pred_id: int, spec_src, spec_dst, *,
+                self_loop: bool = False, impl: str = "auto"):
+    """``row_select.Selection`` of the edges (src, dst) with pred ==
+    pred_id (any when -1) whose endpoints pass their specs (a [N] bool
+    mask or a (lo, hi) interval); with ``self_loop`` also src == dst, and
+    the rows hold src alone.  On CUDA one count launch, and one
+    compaction launch when the rows are written."""
+    from .row_select import edge_select_cuda, edge_select_ref
+    src, dst, pred = _i32(src), _i32(dst), _i32(pred)
+    if on_cuda(src, impl):
+        return edge_select_cuda(src, dst, pred, pred_id, spec_src, spec_dst,
+                                self_loop)
+    return edge_select_ref(src, dst, pred, pred_id, spec_src, spec_dst,
+                           self_loop)
+
+
+def distinct_select(rows, pairs, *, impl: str = "auto"):
+    """``row_select.Selection`` of the rows [n, k] with a valid column 0
+    whose column pairs (i, j) in ``pairs`` hold different values: the
+    injective filter.  On CUDA two launches, as ``edge_select``."""
+    from .row_select import distinct_select_cuda, distinct_select_ref
+    rows = _i32(rows)
+    if on_cuda(rows, impl):
+        return distinct_select_cuda(rows, pairs)
+    return distinct_select_ref(rows, pairs)
+
+
+def masked_select(rows, keep, *, impl: str = "auto"):
+    """``row_select.Selection`` of the rows r of [n, k] with keep[r], for a
+    bool mask of at most n entries (rows past it are not kept).  On CUDA
+    two launches, as ``edge_select``."""
+    from .row_select import masked_select_cuda, masked_select_ref
+    rows = _i32(rows)
+    if on_cuda(rows, impl):
+        return masked_select_cuda(rows, keep)
+    return masked_select_ref(rows, keep)
+
+
 def distinct_mask(rows, *, impl: str = "auto"):
     """First-of-group mask over lexicographically sorted rows [N, K].
 
@@ -205,10 +243,12 @@ def distinct_mask(rows, *, impl: str = "auto"):
 
 def cuda_kernels() -> dict:
     """name -> CudaKernel of every kernel of the package; each carries its
-    ``launches`` count.  Each kernel belongs to a path: the first four to
-    the engine's main path (joins and the neighborhood check;
-    expand_segments counts the launches of its expand_gather entry, the
-    expand of every join),
+    ``launches`` count.  Each kernel belongs to a path: the first four and
+    row_select to the engine's main path (joins and the neighborhood
+    check; expand_segments counts the launches of its expand_gather entry,
+    the expand of every join; row_select those of its count and
+    compaction entries, the edge scan of every D-tree edge, the injective
+    filter, filter_rows and dedup_project),
     bitmask_contains to the bloom prefilter (``EngineConfig.use_bloom``)
     and intersect_any to ``connectivity_mask_vectorized`` (which launches
     its intersect_any_ragged entry)."""
@@ -217,10 +257,12 @@ def cuda_kernels() -> dict:
     from .interval_count import KERNEL as INTERVAL_KERNEL
     from .merge_probe import KERNEL as MERGE_KERNEL
     from .radix_join import WINDOW_KERNEL
+    from .row_select import KERNEL as ROW_SELECT_KERNEL
     from .sorted_intersect import KERNEL as INTERSECT_KERNEL
     return {"merge_probe": MERGE_KERNEL,
             "expand_segments": EXPAND_KERNEL,
             "window_probe": WINDOW_KERNEL,
             "interval_count": INTERVAL_KERNEL,
             "bitmask_contains": BITMASK_KERNEL,
-            "intersect_any": INTERSECT_KERNEL}
+            "intersect_any": INTERSECT_KERNEL,
+            "row_select": ROW_SELECT_KERNEL}

@@ -6,6 +6,9 @@ on a machine with only PyTorch:
 
     python -m pytest -q tests/test_torch_cuda.py
 """
+import sys
+from contextlib import nullcontext
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import radix_join as krad
 from repro_torch.kernels.merge_probe import merge_probe_cuda
 from repro_torch.kernels.sorted_intersect import intersect_any_ragged_cuda
+
+import row_select_cases as rsc
 
 A_INV = (1 << 31) - 1
 B_INV = (1 << 31) - 2
@@ -420,6 +425,207 @@ def test_intersect_any_ragged_binding_raises(dev):
     got = ops.intersect_any_ragged(ids, _on(dev, [-4, 1, 99]), ids, off)
     assert got.tolist() == [1, 1]
     torch.cuda.synchronize()
+
+
+# ----------------------------- row selection --------------------------- #
+def _caps(count):
+    """The engine's capacity, one that cuts the kept rows, a larger one."""
+    return (T.matching._pow2(count), count // 2,
+            4 * T.matching._pow2(count))
+
+
+def _selection_equal(got, want, caps=None):
+    assert int(got.total) == int(want.total)
+    count = int(want.total)
+    for cap in caps or _caps(count):
+        g, w = got.rows(cap), want.rows(cap)
+        assert g.dtype == torch.int32 and g.is_cuda
+        assert torch.equal(g.cpu(), w), cap
+    torch.cuda.synchronize()
+    return count
+
+
+def _spec_on(dev, spec):
+    return spec if isinstance(spec, tuple) else spec.to(dev)
+
+
+def _edge_selections(dev, src, dst, pred, pred_id, ps, pd, self_loop):
+    cpu = [torch.as_tensor(np.asarray(a, np.int32)) for a in (src, dst,
+                                                              pred)]
+    want = ops.edge_select(*cpu, pred_id, ps, pd, self_loop=self_loop)
+    got = ops.edge_select(*(t.to(dev) for t in cpu), pred_id,
+                          _spec_on(dev, ps), _spec_on(dev, pd),
+                          self_loop=self_loop)
+    return got, want
+
+
+@pytest.mark.parametrize("self_loop", [False, True])
+@pytest.mark.parametrize("spec", rsc.EDGE_SPECS)
+@pytest.mark.parametrize("pred_id", rsc.EDGE_PREDS)
+def test_row_select_kernel_edges(dev, pred_id, spec, self_loop):
+    src, dst, pred, ms, md = rsc.edges(7)
+    ps, pd = rsc.specs(spec, torch.as_tensor(ms), torch.as_tensor(md))
+    count = _selection_equal(*_edge_selections(dev, src, dst, pred, pred_id,
+                                               ps, pd, self_loop))
+    assert 0 < count < len(src)
+
+
+def test_row_select_kernel_lubm1_edges(dev, monkeypatch):
+    """The benchmark's LUBM(1,0) edge arrays, 162,657 edges, by each
+    predicate and by any, through masks and intervals."""
+    import json
+    from pathlib import Path
+    from repro_torch.core.graph import RDFGraph
+    root = Path(__file__).resolve().parent.parent
+    monkeypatch.syspath_prepend(str(root))
+    from bench.gen import triples
+    tr = triples(json.loads((root / "bench/configs/lubm1.json").read_text()))
+    g = RDFGraph.from_triples(
+        zip(tr.subs.tolist(), tr.preds.tolist(), tr.objs.tolist()),
+        literal_objects=tr.literals)
+    assert g.num_edges == 162_657
+    rng = np.random.default_rng(5)
+    n = g.num_nodes
+    ms = torch.as_tensor(rng.random(n) < 0.3)
+    md = torch.as_tensor(rng.random(n) < 0.6)
+    specs = [((0, n), (0, n)), ((n // 4, n // 2), (0, 3 * n // 4)),
+             (ms, md), (ms, (n // 8, n))]
+    for pred_id in (-1, *range(int(g.pred.max()) + 1)):
+        for ps, pd in specs:
+            for loop in (False, True):
+                _selection_equal(*_edge_selections(
+                    dev, g.src, g.dst, g.pred, pred_id, ps, pd, loop))
+
+
+def _distinct_selections(dev, rows, pairs):
+    rows = torch.as_tensor(rows)
+    return (ops.distinct_select(rows.to(dev), pairs),
+            ops.distinct_select(rows, pairs))
+
+
+@pytest.mark.parametrize("fill", rsc.TABLE_FILLS)
+@pytest.mark.parametrize("k", [*range(1, 9), 9, 13])
+def test_row_select_kernel_distinct(dev, k, fill):
+    rows = rsc.table(3, k, fill)
+    _selection_equal(*_distinct_selections(
+        dev, rows, rsc.pairs_of(rsc.query_cols(k))))
+    # a row slice that starts off 16-byte alignment takes narrower loads
+    _selection_equal(*_distinct_selections(
+        dev, rows[1:], rsc.pairs_of(rsc.query_cols(k))))
+
+
+def test_row_select_kernel_distinct_2_20_rows(dev):
+    """A 2^20 x 6 table, the size at which the engine cuts a join."""
+    rng = np.random.default_rng(20)
+    cols = (1, 2, 3, 4, 5, 1)
+    rows = rng.integers(0, 40, (1 << 20, 6)).astype(np.int32)
+    rows[:, 5] = rows[:, 0]
+    rows[rng.random(1 << 20) < 0.01] = -1
+    count = _selection_equal(*_distinct_selections(dev, rows,
+                                                   rsc.pairs_of(cols)))
+    assert 0 < count < 1 << 20
+
+
+@pytest.mark.parametrize("length", ["count", "cap"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 6, 8, 70])
+def test_row_select_kernel_masked(dev, k, length):
+    rows = torch.as_tensor(rsc.table(5, k, "mixed"))
+    n = 300 if length == "count" else rows.shape[0]
+    keep = torch.as_tensor(np.random.default_rng(k).random(n) < 0.4)
+    _selection_equal(ops.masked_select(rows.to(dev), keep.to(dev)),
+                     ops.masked_select(rows, keep))
+
+
+def test_row_select_call_launches_two_kernels_and_reads_once(dev):
+    """edge_pairs, the injective filter, filter_rows and dedup_project on
+    the card: at most two launches of the row_select kernel, one counted
+    host read and at most 6 dispatched torch ops a call."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.obs import Tracer
+    m = T.matching
+
+    class Ops(TorchDispatchMode):
+        seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Ops.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    src, dst, pred, ms, md = rsc.edges(9, e=20_000)
+    edges = tuple(torch.as_tensor(a).to(dev) for a in (src, dst, pred))
+    rows = torch.as_tensor(rsc.table(2, 6, "mixed")).to(dev)
+    t6 = m.Table(cols=rsc.query_cols(6), rows=rows, count=300)
+    keep = torch.as_tensor(np.random.default_rng(1).random(512) < 0.5,
+                           device=dev) & (rows[:, 0] >= 0)
+    mask_s = torch.as_tensor(ms).to(dev)
+    calls = {
+        "edge_pairs": lambda: m.edge_pairs(
+            None, 1, mask_s, (0, 200), (4, 5), edges=edges),
+        "edge_pairs_loop": lambda: m.edge_pairs(
+            None, -1, (0, 300), (0, 300), (4, 4), edges=edges),
+        "injective_filter": lambda: m.injective_filter(t6),
+        "filter_rows": lambda: m.filter_rows(t6, keep),
+        "dedup_project": lambda: m.dedup_project(t6, (11, 13)),
+    }
+    kernel = ops.cuda_kernels()["row_select"]
+    tr = Tracer()
+    for name, call in calls.items():
+        call()                                  # built and bound
+        torch.cuda.synchronize()
+        tid = tr.start()
+        before = kernel.launches
+        # dedup_project's own lexsort dispatches ops beside the selection
+        counted = Ops() if name != "dedup_project" else nullcontext()
+        with tr.segment("execute", tid) as seg, counted:
+            out = call()
+        torch.cuda.synchronize()
+        assert out.count > 0, name
+        assert 1 <= kernel.launches - before <= 2, name
+        assert seg.attrs.get("host_syncs") == 1, name
+        assert len(Ops.seen) <= 6, (name, Ops.seen)
+        Ops.seen = []
+        tr.finish(tid)
+
+
+def test_cuda_engine_rows_match_cpu_engine(dev, monkeypatch):
+    """Engine.execute on the card gives the CPU's MatchResult rows, in
+    order, for size-6 templates; its warm executions select rows only
+    through the row_select kernel: no plain selection runs, and
+    compact_indices is called only by _sort_sides and the nested join."""
+    from repro_torch.kernels import fused_join, row_select
+    dt = T.Dataset.build(TD.DATASETS["lubm"](scale=0.3, seed=1))
+    ec, eg = dt.engine("rdf_h", device="cpu"), dt.engine("rdf_h")
+    queries = [TD.random_query(dt.graph, size=6, seed=s) for s in
+               range(200, 208)]
+    want = [ec.execute(q) for q in queries]
+    pqs = [eg.prepare(q) for q in queries]
+    for pq, w in zip(pqs, want):                  # cold
+        r = eg.execute_prepared(pq)
+        assert r.cols == w.cols and np.array_equal(r.rows, w.rows)
+    callers = set()
+    real = fused_join.compact_indices
+
+    def spy(*a, **kw):
+        callers.add(sys._getframe(1).f_code.co_name)
+        return real(*a, **kw)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain row selection ran on the card")
+
+    for mod in (fused_join, T.matching, row_select):
+        monkeypatch.setattr(mod, "compact_indices", spy)
+    for name in ("edge_select_ref", "distinct_select_ref",
+                 "masked_select_ref"):
+        monkeypatch.setattr(row_select, name, refuse)
+    kernel = ops.cuda_kernels()["row_select"]
+    kernel.reset()
+    for pq, w in zip(pqs, want):                  # warm
+        r = eg.execute_prepared(pq)
+        assert r.cols == w.cols and np.array_equal(r.rows, w.rows)
+    assert kernel.entry_launches["edge_count"] > 0
+    assert kernel.entry_launches["edge_compact"] > 0
+    assert kernel.entry_launches["row_count"] > 0
+    assert callers <= {"_sort_sides", "_join_gather"}, callers
 
 
 def test_cuda_engine_matches_cpu_engine(dev):

@@ -21,12 +21,15 @@ from repro.core.signature import _gather_count
 from repro.core.ni_index import build_ni_index
 from repro.data import dblp_like, lubm_like
 
+import repro_torch.core.matching as tm
 import repro_torch.core.signature as tsig
 import repro_torch.data as TD
 from repro_torch.core.ni_index import build_ni_index as tbuild_ni_index
 import repro_torch.kernels.fused_join as tfused
 import repro_torch.kernels.radix_join as trad
-from repro_torch.kernels import ops as tops, ref as tref
+from repro_torch.kernels import KernelError, ops as tops, ref as tref
+
+import row_select_cases as rsc
 
 A_INV = (1 << 31) - 1
 B_INV = (1 << 31) - 2
@@ -462,6 +465,159 @@ def test_compact_indices_is_fixed_size_nonzero(size):
     _eq(tfused.compact_indices(torch.as_tensor(mask), size, -7), want)
 
 
+# ----------------------------- row selection --------------------------- #
+# The engine's compositions before ops.edge_select, distinct_select and
+# masked_select (core/matching.py's _pass, _edge_pairs_mask,
+# _edge_pairs_gather, _injective_keep and _filter_gather), written out: the
+# plain versions behind the three entries must equal them.
+def _old_pass(spec, ids):
+    if isinstance(spec, tuple):
+        return (ids >= spec[0]) & (ids < spec[1])
+    return spec[ids]
+
+
+def _old_edge_mask(src, dst, pred, pred_id, pass_src, pass_dst, self_loop):
+    m = _old_pass(pass_src, src) & _old_pass(pass_dst, dst)
+    m = m & (pred == pred_id) if pred_id >= 0 else m
+    return m & (src == dst) if self_loop else m
+
+
+def _old_edge_rows(mask, src, dst, self_loop, cap):
+    e = src.shape[0]
+    idx = tfused.compact_indices(mask, cap, e)
+    if self_loop:
+        s = src[torch.clamp(idx, max=e - 1)].masked_fill(idx >= e, -1)
+        return s[:, None]
+    safe = torch.clamp(idx, max=e - 1)
+    pad = (idx >= e)[:, None]
+    return torch.stack([src[safe], dst[safe]], dim=1).masked_fill(pad, -1)
+
+
+def _old_injective_keep(rows, pairs):
+    keep = rows[:, 0] >= 0
+    for i, j in pairs:
+        keep &= rows[:, i] != rows[:, j]
+    return keep
+
+
+def _old_filter_gather(rows, keep, cap_out):
+    cap_in = rows.shape[0]
+    idx = tfused.compact_indices(keep, cap_out, cap_in)
+    safe = torch.clamp(idx, max=cap_in - 1)
+    return rows[safe].masked_fill((idx >= cap_in)[:, None], -1)
+
+
+def _edge_case(spec):
+    src, dst, pred, ms, md = rsc.edges(7)
+    ps, pd = rsc.specs(spec, torch.as_tensor(ms), torch.as_tensor(md))
+    return (_t(src), _t(dst), _t(pred)), ps, pd
+
+
+def _caps(count):
+    """The engine's capacity, one that cuts the kept rows, a larger one."""
+    return (tm._pow2(count), count // 2, 4 * tm._pow2(count))
+
+
+@pytest.mark.parametrize("self_loop", [False, True])
+@pytest.mark.parametrize("spec", rsc.EDGE_SPECS)
+@pytest.mark.parametrize("pred_id", rsc.EDGE_PREDS)
+def test_edge_select_plain_matches_the_engines_composition(pred_id, spec,
+                                                           self_loop):
+    (src, dst, pred), ps, pd = _edge_case(spec)
+    mask = _old_edge_mask(src, dst, pred, pred_id, ps, pd, self_loop)
+    sel = tops.edge_select(src, dst, pred, pred_id, ps, pd,
+                           self_loop=self_loop)
+    count = int(mask.sum())
+    assert int(sel.total) == count and 0 < count < src.shape[0]
+    for cap in _caps(count):
+        got = sel.rows(cap)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, _old_edge_rows(mask, src, dst, self_loop,
+                                               cap))
+
+
+@pytest.mark.parametrize("self_loop", [False, True])
+def test_edge_pairs_cap_below_the_count_raises(self_loop):
+    edges, ps, pd = _edge_case("mask_interval")
+    cols = (4, 4) if self_loop else (4, 5)
+    t = tm.edge_pairs(None, 1, ps, pd, cols, edges=edges)
+    assert t.count > 0 and t.rows.shape == (tm._pow2(t.count),
+                                            1 if self_loop else 2)
+    with pytest.raises(tm.CapacityOverflow) as ei:
+        tm.edge_pairs(None, 1, ps, pd, cols, cap=t.count - 1, edges=edges)
+    assert ei.value.needed == t.count
+    exact = tm.edge_pairs(None, 1, ps, pd, cols, cap=t.count, edges=edges)
+    assert torch.equal(exact.rows, t.rows[: t.count])
+
+
+@pytest.mark.parametrize("fill", rsc.TABLE_FILLS)
+@pytest.mark.parametrize("k", range(1, 9))
+def test_distinct_select_plain_matches_the_engines_composition(k, fill):
+    rows = _t(rsc.table(3, k, fill))
+    pairs = rsc.pairs_of(rsc.query_cols(k))
+    keep = _old_injective_keep(rows, pairs)
+    sel = tops.distinct_select(rows, pairs)
+    kept = int(keep.sum())
+    assert int(sel.total) == kept
+    assert kept == {"all_kept": 300, "none_kept": 0}.get(fill, kept)
+    for cap in _caps(kept):
+        assert torch.equal(sel.rows(cap), _old_filter_gather(rows, keep, cap))
+    # the injective filter over a table of these rows: untouched when
+    # every row is kept, else the kept rows at the engine's capacity
+    table = tm.Table(cols=rsc.query_cols(k), rows=rows, count=300,
+                     sort_order=rsc.query_cols(k)[:1])
+    out = tm.injective_filter(table)
+    if k < 2 or kept == 300:
+        assert out is table
+    else:
+        assert (out.count, out.sort_order) == (kept, table.sort_order)
+        assert torch.equal(out.rows, _old_filter_gather(rows, keep,
+                                                        tm._pow2(kept)))
+
+
+@pytest.mark.parametrize("length", ["count", "cap"])
+@pytest.mark.parametrize("k", [1, 2, 3, 6])
+def test_masked_select_plain_matches_the_engines_composition(k, length):
+    rows = _t(rsc.table(5, k, "mixed"))
+    n = 300 if length == "count" else rows.shape[0]
+    keep = torch.as_tensor(np.random.default_rng(k).random(n) < 0.4)
+    full = torch.cat([keep, torch.zeros(rows.shape[0] - n,
+                                        dtype=torch.bool)])
+    sel = tops.masked_select(rows, keep)
+    assert int(sel.total) == int(keep.sum())
+    for cap in _caps(int(keep.sum())):
+        assert torch.equal(sel.rows(cap), _old_filter_gather(rows, full, cap))
+    table = tm.Table(cols=rsc.query_cols(k), rows=rows, count=300)
+    for got in (tm.filter_rows(table, keep),
+                tm.filter_rows(table, keep.numpy()),
+                tm.filter_rows(table, keep, kept=int(keep.sum()))):
+        assert got.count == int(keep.sum())
+        assert torch.equal(got.rows, _old_filter_gather(
+            rows, full, tm._pow2(got.count)))
+
+
+@pytest.mark.parametrize("entry", ["edge_select", "distinct_select",
+                                   "masked_select"])
+def test_row_select_dispatch(entry):
+    """impl='cuda' on CPU tensors raises KernelError; a CPU call launches
+    no kernel."""
+    (src, dst, pred), ps, pd = _edge_case("mask")
+    rows = _t(rsc.table(1, 3, "mixed"))
+    call = {"edge_select": lambda **kw: tops.edge_select(
+                src, dst, pred, 0, ps, pd, **kw),
+            "distinct_select": lambda **kw: tops.distinct_select(
+                rows, ((0, 1),), **kw),
+            "masked_select": lambda **kw: tops.masked_select(
+                rows, rows[:, 0] > 2, **kw)}[entry]
+    with pytest.raises(KernelError):
+        call(impl="cuda")
+    kernel = tops.cuda_kernels()["row_select"]
+    before = dict(kernel.entry_launches)
+    sel = call()
+    sel.rows(tm._pow2(int(sel.total)))
+    assert kernel.entry_launches == before
+
+
 # --------------------------- bitmask contains -------------------------- #
 @pytest.mark.parametrize("c,w", [(1, 1), (9, 3), (64, 8), (200, 17),
                                  (513, 4)])
@@ -637,5 +793,10 @@ def test_cpu_dispatch_launches_no_kernel():
         [1], True)], 0, 1)
     tops.bitmask_contains(_t([[1, 2]]), _t([1, 0]))
     tops.intersect_any(_t([[1, -1]]), _t([[3, 1]]))
-    assert len(before) == 6
+    for sel in (tops.edge_select(_t([1, 2]), _t([2, 2]), _t([0, 0]), -1,
+                                 (0, 5), (0, 5)),
+                tops.distinct_select(_t([[1, 2], [3, 3]]), ((0, 1),)),
+                tops.masked_select(_t([[1], [2]]), torch.tensor([1, 0]) > 0)):
+        sel.rows(4)
+    assert len(before) == 7
     assert {k: v.launches for k, v in tops.cuda_kernels().items()} == before
