@@ -49,8 +49,9 @@ from .graph import RDFGraph
 from .ni_index import NIIndex
 from .dataset import Dataset, ENGINE_VARIANTS, interval_footprint_hit
 from .query import QueryTemplate, ConnectionEdge
-from .signature import (build_requirements, check_interval_candidates,
-                        bloom_prefilter, build_bloom, upload_entry)
+from .signature import (CheckCounts, build_requirements,
+                        check_interval_candidates, bloom_prefilter,
+                        build_bloom, upload_entry)
 from .decompose import decompose, join_order, DTree
 from .matching import (Table, CapacityOverflow, dtree_candidates,
                        cross_join, single_node_table, filter_rows,
@@ -291,7 +292,7 @@ class Engine:
     # equal); the tracer too, so degraded-rung spans land in the
     # primary's trace
     _SHARED = ("dataset", "graph", "ni", "device", "idmap", "stats",
-               "_dev_cache", "tracer")
+               "_dev_cache", "tracer", "check_counts")
 
     def __init__(self, dataset: "Dataset | RDFGraph",
                  ni: "NIIndex | EngineConfig | None" = None,
@@ -331,6 +332,9 @@ class Engine:
         # observability: the serving layer installs its Tracer here; the
         # default no-op tracer keeps bare-engine hot paths at ~zero cost
         self.tracer = NULL_TRACER
+        # what the signature check did, summed over every execution that
+        # ran it (CheckCounts)
+        self.check_counts = CheckCounts()
 
     # -------------------------------------------------------------- #
     def prepare(self, query: QueryTemplate,
@@ -425,7 +429,8 @@ class Engine:
         return True
 
     # -------------------------------------------------------------- #
-    def _candidate_masks(self, pq: PreparedQuery) -> tuple:
+    def _candidate_masks(self, pq: PreparedQuery,
+                         counts: CheckCounts) -> tuple:
         """Per-node candidate pass specs.  With the check on, each node
         gets a [N] bool mask.  Without it the candidate set IS the IDMap
         interval — represented as a (lo, hi) pair instead of materializing
@@ -433,7 +438,8 @@ class Engine:
         single_node_table consume both forms), so the wildcard path
         allocates nothing per node.  Deterministic per (dataset,
         template): cached on the PreparedQuery, so warm executions skip
-        the whole signature check."""
+        the whole signature check.  ``counts`` gets what the check did
+        (``CheckCounts``); a warm plan adds nothing."""
         if pq.masks is not None:
             return pq.masks
         if pq.masks_host is not None:
@@ -476,6 +482,7 @@ class Engine:
                             min(cfg.d_check, self.ni.d_max),
                             impl=cfg.impl, chunk=cfg.chunk,
                             device_cache=self._dev_cache,
+                            counts=counts,
                             device=self.device)
                     mask[lo:hi] = ok
                     pass_np[q] = mask
@@ -519,12 +526,16 @@ class Engine:
         # ---- candidate masks ------------------------------------------
         t1 = time.perf_counter()
         tracer = self.tracer
+        counts = CheckCounts()
         with tracer.span("check") as sp:
-            pass_masks, pass_np, after = self._candidate_masks(pq)
+            pass_masks, pass_np, after = self._candidate_masks(pq, counts)
             if sp.live:
                 sp.set(used_check=pq.use_check,
                        before=qs.candidates_before, after=after,
-                       warm=pq.warm)
+                       warm=pq.warm,
+                       **{f"check_{k}": v
+                          for k, v in counts.snapshot().items()})
+        self.check_counts.add(counts)
         qs.candidates_after = after
         qs.check_time = time.perf_counter() - t1
         # deadline-only checkpoint: candidate counts are not join rows,

@@ -26,6 +26,7 @@ checks degrade gracefully to 1-hop information.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import cached_property
 
 import numpy as np
 
@@ -44,6 +45,21 @@ class NIEntry:
     @property
     def cap(self) -> int:
         return int(self.ids.shape[1])
+
+    @cached_property
+    def stored_prefix(self) -> np.ndarray:
+        """[N + 1] int64 prefix sums of each row's stored length
+        min(count, cap): rows lo..hi-1 hold ``stored_prefix[hi] -
+        stored_prefix[lo]`` ids.  Built on first use."""
+        out = np.zeros(self.count.shape[0] + 1, dtype=np.int64)
+        np.cumsum(np.minimum(self.count, self.cap), out=out[1:])
+        return out
+
+    @cached_property
+    def overflowed(self) -> list:
+        """The rows whose overflow bit is set, ascending (a list, for
+        ``bisect``).  Built on first use."""
+        return np.flatnonzero(self.overflow).tolist()
 
 
 @dataclass

@@ -19,6 +19,7 @@ with the bitmask_contains kernel before the check.
 """
 from __future__ import annotations
 
+from bisect import bisect_left
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -111,6 +112,27 @@ def build_requirements(query: QueryTemplate, comp: list[int], q: int,
     return NodeReqs(fwd=one_direction(True), bwd=one_direction(False))
 
 
+@dataclass
+class CheckCounts:
+    """What the check did, summed over the query nodes it ran for: the
+    nodes, the candidates that entered, those that passed, those that
+    passed with an overflowed NI row in a checked segment (passed
+    untested there), and the stored ids of the checked segments' rows.
+    Counted from the NI index's host arrays: no device read."""
+    nodes: int = 0
+    candidates: int = 0
+    passed: int = 0
+    overflow_passed: int = 0
+    ids_read: int = 0
+
+    def add(self, other: "CheckCounts") -> None:
+        for k, v in vars(other).items():
+            setattr(self, k, getattr(self, k) + v)
+
+    def snapshot(self) -> dict:
+        return dict(vars(self))
+
+
 def upload_entry(ni: NIIndex, sign: int, d: int, device) -> tuple:
     """(ids, lens, overflow) of NI entry sign*d on ``device``: the ids,
     each row's stored length min(count, cap) and the overflow bits — the
@@ -127,6 +149,7 @@ def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
                               *, impl: str = "auto",
                               chunk: int = 8192,
                               device_cache: dict | None = None,
+                              counts: CheckCounts,
                               device) -> np.ndarray:
     """Pass mask (bool [hi-lo]) for candidates lo..hi-1 of one query node.
 
@@ -139,7 +162,10 @@ def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
     (``repro.core.signature._gather_count`` and the host-side sums) is
     one ``ops.interval_check`` over the node's segments: on CUDA one
     launch and one copy of the verdict back to the host; on the CPU the
-    plain version, in chunks of ``chunk`` candidates."""
+    plain version, in chunks of ``chunk`` candidates.
+    counts: where a check that ran adds what it did (``CheckCounts``),
+    read from the entries' host summaries (``NIEntry.stored_prefix``,
+    ``NIEntry.overflowed``): no device read."""
     n_cand = hi - lo
     out = np.ones(n_cand, dtype=bool)
     if reqs.empty or n_cand == 0:
@@ -153,7 +179,7 @@ def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
             cache[key] = upload_entry(ni, sign, d, device)
         return cache[key]
 
-    segments = []
+    segments, keys = [], []
     for sign, dreq in ((+1, reqs.fwd), (-1, reqs.bwd)):
         if dreq is None or not dreq.need.any():
             continue
@@ -163,10 +189,29 @@ def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
             segments.append(ops.CheckSegment(
                 *dev_entry(sign, d), lo=dreq.lo, hi=dreq.hi,
                 need=need if need.sum() > 0 else None, first=d == 1))
+            keys.append((sign, d))
     if not segments:
         return out
-    ok = ops.interval_check(segments, lo, hi, impl=impl, chunk=chunk)
-    return to_host(ok)
+    ok = to_host(ops.interval_check(segments, lo, hi, impl=impl,
+                                    chunk=chunk))
+    counts.add(_count(ni, keys, lo, hi, ok))
+    return ok
+
+
+def _count(ni: NIIndex, keys: list, lo: int, hi: int,
+           ok: np.ndarray) -> CheckCounts:
+    """The counts of one node's check over candidates lo..hi-1, whose
+    verdict is ``ok``, over the segments ``keys``."""
+    ids_read, over = 0, set()
+    for sign, d in keys:
+        e = ni.entries[sign * d]
+        ids_read += int(e.stored_prefix[hi] - e.stored_prefix[lo])
+        rows = e.overflowed
+        over.update(rows[bisect_left(rows, lo):bisect_left(rows, hi)])
+    return CheckCounts(nodes=1, candidates=hi - lo,
+                       passed=int(np.count_nonzero(ok)),
+                       overflow_passed=sum(bool(ok[r - lo]) for r in over),
+                       ids_read=ids_read)
 
 
 # ---------------------------------------------------------------------- #

@@ -712,6 +712,7 @@ class QueryServer:
         # thresholds/cost model the new engine plans with
         eng = Engine(new_ds, old_engine.cfg)
         eng.tracer = self.tracer
+        eng.check_counts = old_engine.check_counts
         for key, dev in old_engine._dev_cache.items():
             if key == "edges":
                 keep = new_ds.graph is old_ds.graph
@@ -831,7 +832,8 @@ class QueryServer:
         """One JSON-serializable snapshot of everything the server knows
         about itself: latency percentiles (seconds), cache hit rates,
         batching dedup, calibration state, governance counters, the
-        metrics-registry snapshot, and the QueryStats rollup."""
+        metrics-registry snapshot, the QueryStats rollup, and what the
+        signature check did (``check``: ``CheckCounts`` since start)."""
         rc = self.engine.reach_cache
         gov_t = None
         if self.governor is not None:
@@ -879,5 +881,7 @@ class QueryServer:
                             else self.calibrator.snapshot()),
             "governor": gov_t,
             "stats_rollup": dict(self._rollup),
+            # the port's own: what the signature check did, cumulative
+            "check": self.engine.check_counts.snapshot(),
         }
         return out

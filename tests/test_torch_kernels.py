@@ -205,6 +205,7 @@ def test_node_check_matches_reference(name, scale, variant, dirs, j):
         for lo, hi in ranges:
             want = jsig.check_interval_candidates(ni_j, made[jsig], lo, hi, 2)
             got = tsig.check_interval_candidates(ni_t, made[tsig], lo, hi, 2,
+                                                 counts=tsig.CheckCounts(),
                                                  device="cpu")
             assert got.dtype == bool
             _eq(got, want)

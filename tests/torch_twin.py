@@ -206,8 +206,11 @@ def run_stats(res) -> dict:
 # trace comparison drops: the span of the answer's copy to the host
 # (``copy_out``, with its ``rows`` and ``bytes``), and the ``execute``
 # segment's count of the engine's device reads (``host_syncs``) and the
-# host time blocked in them (``sync_wait_ns``).
-PORT_ONLY_TRACE = ("copy_out", "host_syncs", "sync_wait_ns")
+# host time blocked in them (``sync_wait_ns``), and the ``check`` span's
+# counts of what the signature check did (``CheckCounts``' fields).
+PORT_ONLY_TRACE = ("copy_out", "host_syncs", "sync_wait_ns", "check_nodes",
+                   "check_candidates", "check_passed",
+                   "check_overflow_passed", "check_ids_read")
 
 
 def trace_spans(trace) -> list:
@@ -235,10 +238,12 @@ def mask_explain(text: str) -> str:
 def telemetry_view(srv) -> dict:
     """``QueryServer.telemetry()`` without its wall-clock readings:
     latency histograms keep their counts, the rollup drops its ``*_time``
-    sums, the snapshot block drops its age.  Everything else — plan,
-    result and reach caches, batching, calibration, governor counters,
-    metrics counters and gauges — stays, to be held equal."""
+    sums, the snapshot block drops its age, and the port's own ``check``
+    counts go.  Everything else — plan, result and reach caches,
+    batching, calibration, governor counters, metrics counters and
+    gauges — stays, to be held equal."""
     t = srv.telemetry()
+    t.pop("check", None)            # the port's own
     t["latency"] = {k: t["latency"][k] for k in ("n_cold", "n_warm")}
     hist = t["metrics"]["histograms"]
     for name, h in list(hist.items()):
