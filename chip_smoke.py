@@ -19,9 +19,13 @@ exits non-zero without its final line:
             path and the bisection kernel that small probes run
             (yardstick_path_ms, yardstick_bisect_ms).  The row
             interval_count_node_check is the neighborhood check of one
-            query node in one launch over 65,536 candidates, timed beside
-            the chunked launch pattern (one count launch per chunk,
-            direction and distance) as host time per node.  The row
+            query node in one launch over 65,536 candidates, called as
+            the engine calls it (the verdict in place in a row of a
+            [Q, N] pass mask buffer, the passes on device counters, the
+            segment words at an offset of one packed upload) and held,
+            buffer and counters, to the plain version given the same;
+            timed beside the chunked launch pattern (one count launch per
+            chunk, direction and distance) as host time per node.  The row
             expand_gather is the join expand in one launch, timed beside
             the slot-map path (expand_segments + the PyTorch gather) and the
             library composition (torch.searchsorted + the gather);
@@ -737,51 +741,8 @@ def kernel_phase(ds, rng) -> list:
     del ids, lens
     torch.cuda.empty_cache()
 
-    # interval_count_node_check: the whole check of one query node in one
-    # launch (both directions, distances 1 and 2, J = 8) over 65,536
-    # contiguous candidate nodes of the real NI entries, against its plain
-    # version.  The bound counts each candidate's stored prefix in each
-    # segment once, its length and overflow bit, and the ok byte
-    segs, host_over = node_check_segments(ds, rng, j, dev)
-    nn_cand = min(1 << 16, nn)
-    c_lo = (nn - nn_cand) // 2
-    c_hi = c_lo + nn_cand
-    prefix = sum(int(s.lens[c_lo:c_hi].sum()) for s in segs)
-    node_ok = ops.interval_check(segs, c_lo, c_hi)
-    record_row(out, "interval_count_node_check", "interval_count.cu",
-               "src/repro/kernels/interval_count.py:58",
-               lambda: ops.interval_check(segs, c_lo, c_hi),
-               lambda: ref.interval_check_ref(segs, c_lo, c_hi),
-               None, 4 * prefix + 5 * len(segs) * nn_cand + nn_cand,
-               2 * j * prefix, (node_ok,),
-               (ref.interval_check_ref(segs, c_lo, c_hi),),
-               counter="interval_count")
-    # beside it, host wall time per node of the one launch with its copy
-    # back, and of the chunked pattern on the same inputs: a count launch
-    # per 8,192-candidate chunk, direction and distance, each copied back
-    new_s, old_s = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        got = ops.interval_check(segs, c_lo, c_hi).cpu().numpy()
-        new_s.append(time.perf_counter() - t0)
-        before = ops.cuda_kernels()["interval_count"].launches
-        t0 = time.perf_counter()
-        old = chunked_check(segs, host_over, c_lo, c_hi)
-        old_s.append(time.perf_counter() - t0)
-        old_launches = ops.cuda_kernels()["interval_count"].launches - before
-        if not np.array_equal(got, old):
-            fail("interval_count_node_check: the one-launch verdict differs "
-                 "from the chunked launch pattern's")
-    emit({"phase": "interval_count_node_check", "candidates": nn_cand,
-          "first": c_lo, "segments": len(segs), "j": j,
-          "stored_ids": prefix, "pass_share": float(got.mean()),
-          "rows_over_32_ids": [int((s.lens[c_lo:c_hi] > 32).sum())
-                               for s in segs],
-          "host_ms_per_node": float(np.median(new_s)) * 1e3,
-          "host_ms_per_node_chunked": float(np.median(old_s)) * 1e3,
-          "launches_per_node_chunked": old_launches})
-    del segs, node_ok
-    torch.cuda.empty_cache()
+    nn_cand = record_node_check(out, ds, rng, j, dev)
+
 
     # bitmask_contains: the real 1-hop bloom signatures of every node
     # (W = 8 words) against the query signature of two real node ids.  The
@@ -862,6 +823,97 @@ def kernel_phase(ds, rng) -> list:
     del sigs
     torch.cuda.empty_cache()
     return out
+
+
+def record_node_check(out, ds, rng, j: int, dev) -> int:
+    """The row interval_count_node_check: the whole check of one query
+    node in one launch (both directions, distances 1 and 2, J = j) over
+    65,536 contiguous candidate nodes of the real NI entries, called as
+    the engine's check_template calls it: the verdict written in place into
+    row 1 of a zeroed [2, N] pass mask buffer, the passes and the passes
+    with an overflowed row added to the row's device counters, and the
+    segment words read at an offset of one packed upload.  Held to the
+    plain version with the same out and tally: the whole buffer (row 0
+    and the columns outside lo..hi stay false) and the counters.  The
+    bound counts each candidate's stored prefix in each segment once,
+    its length and overflow bit, and the ok byte.  Returns the number of
+    candidates."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    nn = ds.graph.num_nodes
+    segs, host_over = node_check_segments(ds, rng, j, dev)
+    nn_cand = min(1 << 16, nn)
+    c_lo = (nn - nn_cand) // 2
+    c_hi = c_lo + nn_cand
+    prefix = sum(int(s.lens[c_lo:c_hi].sum()) for s in segs)
+    data_at = 7             # the words of an earlier node come first
+    data = ops.upload(np.concatenate([rng.integers(0, nn, data_at),
+                                      ops.check_words(segs)]), dev)
+    rows = torch.zeros((2, nn), dtype=torch.bool, device=dev)
+    tally = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    plain_rows = torch.zeros((2, nn), dtype=torch.bool, device=dev)
+    plain_tally = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+
+    def node_check():
+        return ops.interval_check(segs, c_lo, c_hi, out=rows[1],
+                                  tally=tally[1, :2], data=data,
+                                  data_at=data_at)
+
+    def node_check_plain():
+        return ref.interval_check_ref(segs, c_lo, c_hi, out=plain_rows[1],
+                                      tally=plain_tally[1, :2])
+    node_check()
+    node_check_plain()
+    if rows[:, :c_lo].any() or rows[:, c_hi:].any() or rows[0].any():
+        fail("interval_count_node_check: the launch wrote outside its "
+             "row's columns lo..hi")
+    if int(tally[1, 0]) != int(rows[1].sum()):
+        fail(f"interval_count_node_check: {int(tally[1, 0])} passes "
+             f"counted, {int(rows[1].sum())} in the row")
+    node_ok = (rows.clone(), tally.clone())
+    record_row(out, "interval_count_node_check", "interval_count.cu",
+               "src/repro/kernels/interval_count.py:58",
+               node_check, node_check_plain,
+               None, 4 * prefix + 5 * len(segs) * nn_cand + nn_cand,
+               2 * j * prefix, node_ok, (plain_rows.clone(),
+                                         plain_tally.clone()),
+               counter="interval_count")
+    # beside it, host wall time per node of the one launch with its copy
+    # back, and of the chunked pattern on the same inputs: a count launch
+    # per 8,192-candidate chunk, direction and distance, each copied back
+    new_s, old_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = node_check().cpu().numpy()
+        new_s.append(time.perf_counter() - t0)
+        before = ops.cuda_kernels()["interval_count"].launches
+        t0 = time.perf_counter()
+        old = chunked_check(segs, host_over, c_lo, c_hi)
+        old_s.append(time.perf_counter() - t0)
+        old_launches = ops.cuda_kernels()["interval_count"].launches - before
+        if not np.array_equal(got, old):
+            fail("interval_count_node_check: the one-launch verdict differs "
+                 "from the chunked launch pattern's")
+    over_any = np.zeros(nn_cand, dtype=bool)
+    for o in host_over:
+        over_any |= o[c_lo:c_hi]
+    if int(node_ok[1][1, 1]) != int((got & over_any).sum()):
+        fail("interval_count_node_check: the device's overflow_passed "
+             "differs from the host's count")
+    emit({"phase": "interval_count_node_check", "candidates": nn_cand,
+          "first": c_lo, "segments": len(segs), "j": j,
+          "stored_ids": prefix, "pass_share": float(got.mean()),
+          "passed": int(node_ok[1][1, 0]),
+          "overflow_passed": int(node_ok[1][1, 1]),
+          "rows_over_32_ids": [int((s.lens[c_lo:c_hi] > 32).sum())
+                               for s in segs],
+          "host_ms_per_node": float(np.median(new_s)) * 1e3,
+          "host_ms_per_node_chunked": float(np.median(old_s)) * 1e3,
+          "launches_per_node_chunked": old_launches})
+    del segs, node_ok, rows, plain_rows, data
+    torch.cuda.empty_cache()
+    return nn_cand
 
 
 def record_row_select(out, ds, rng, dev) -> None:
@@ -1008,7 +1060,7 @@ def record_ragged(out, name, host, dev):
 
 def node_check_segments(ds, rng, j: int, dev):
     """The CheckSegments of one query node on the real NI entries, as
-    check_interval_candidates builds them: forward then backward,
+    the engine's check builds them: forward then backward,
     distances 1 and 2, J intervals each (the first the whole id range:
     one forward neighbor needed at 1 hop and two within 2, one backward
     neighbor within 2); and each entry's overflow bits on the host."""
@@ -1108,7 +1160,6 @@ N_QUERIES = 12          # the last 4 carry one connection edge each
 def main_phase(ds, n_queries: int):
     import numpy as np
     import torch
-    import repro_torch.core.engine as engine_mod
     import repro_torch.core.matching as matching
     from repro_torch.data import random_query
     from repro_torch.kernels import fused_join, ops
@@ -1119,8 +1170,8 @@ def main_phase(ds, n_queries: int):
                             n_connection=1 if i >= n_queries - 4 else 0)
                for i in range(n_queries)]
 
-    # read-only taps for this phase: the check calls that launched the
-    # node check, the shapes of every radix join (a.cap, b.count from
+    # read-only taps for this phase: the node checks (ops.interval_check,
+    # one a checked query node) that launched, the shapes of every radix join (a.cap, b.count from
     # the join, bits and lmax from its probe), of every sort-merge probe
     # and of every join expand, whose expand_segments-counter launches
     # are counted call by call
@@ -1129,8 +1180,8 @@ def main_phase(ds, n_queries: int):
     checks = {"calls": 0, "launched": 0}
     radix, probes, expands = [], [], []
     inputs = {"probe": {}, "expand": {}}     # first inputs of each shape
-    check, join_radix, probe = (engine_mod.check_interval_candidates,
-                                matching._join_radix, ops.radix_probe)
+    check, join_radix, probe = (ops.interval_check, matching._join_radix,
+                                ops.radix_probe)
     # the staged and reach-join probes go through ops.merge_probe, the
     # fused chain's through fused_join._probe
     merge, fused, expand = (ops.merge_probe, fused_join._probe,
@@ -1172,7 +1223,7 @@ def main_phase(ds, n_queries: int):
     def tap_probe(*a, **kw):
         radix[-1].update(bits=kw["bits"], lmax=kw["lmax"])
         return probe(*a, **kw)
-    engine_mod.check_interval_candidates = tap_check
+    ops.interval_check = tap_check
     matching._join_radix, ops.radix_probe = tap_join, tap_probe
     ops.merge_probe, ops.expand_gather = tapped(merge), tap_expand
     fused_join._probe = tapped(fused)
@@ -1206,7 +1257,7 @@ def main_phase(ds, n_queries: int):
         wall = time.perf_counter() - t_start
         launches = read_launches("main", MAIN_KERNELS)
     finally:
-        engine_mod.check_interval_candidates = check
+        ops.interval_check = check
         matching._join_radix, ops.radix_probe = join_radix, probe
         ops.merge_probe, ops.expand_gather = merge, expand
         fused_join._probe = fused

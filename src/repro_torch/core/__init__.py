@@ -5,7 +5,7 @@ from .ni_index import NIIndex, NIEntry, build_ni_index, \
 from .dataset import (Dataset, ENGINE_VARIANTS, content_digest,
                       interval_footprint_hit)
 from .query import QueryTemplate, QueryEdge, ConnectionEdge, brute_force_match
-from .signature import build_requirements, check_interval_candidates
+from .signature import build_requirements, check_template
 from .decompose import DTree, decompose, join_order
 from .matching import Table, CandidateTable, SortedRun, JoinTelemetry, \
     join_tables, cross_join, edge_pairs, graph_edges, \

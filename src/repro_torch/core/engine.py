@@ -40,6 +40,7 @@ from __future__ import annotations
 import math
 import time
 import warnings
+from collections.abc import Mapping
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -49,9 +50,8 @@ from .graph import RDFGraph
 from .ni_index import NIIndex
 from .dataset import Dataset, ENGINE_VARIANTS, interval_footprint_hit
 from .query import QueryTemplate, ConnectionEdge
-from .signature import (CheckCounts, build_requirements,
-                        check_interval_candidates, bloom_prefilter,
-                        build_bloom, upload_entry)
+from .signature import (CheckCounts, build_requirements, check_template,
+                        bloom_prefilter, build_bloom, upload_entry)
 from .decompose import decompose, join_order, DTree
 from .matching import (Table, CapacityOverflow, dtree_candidates,
                        cross_join, single_node_table, filter_rows,
@@ -204,6 +204,31 @@ class MatchResult:
         return {tuple(int(r[i]) for i in order) for r in self.rows}
 
 
+class HostMasks(Mapping):
+    """node -> the host form of its pass spec: a [N] bool NumPy mask where
+    the spec is a device row, None where it is the interval (lo, hi).  A
+    row is read from the device at its first lookup, so only a caller that
+    needs the host form (a snapshot, an isolated node's table) pays for
+    the copy."""
+
+    def __init__(self, specs: dict):
+        self._specs = specs
+        self._host: dict = {}
+
+    def __getitem__(self, q):
+        if q not in self._host:
+            spec = self._specs[q]
+            self._host[q] = None if isinstance(spec, tuple) \
+                else to_host(spec)
+        return self._host[q]
+
+    def __iter__(self):
+        return iter(self._specs)
+
+    def __len__(self) -> int:
+        return len(self._specs)
+
+
 @dataclass
 class PreparedQuery:
     """Template-level execution state: computed once by `Engine.prepare`,
@@ -234,7 +259,7 @@ class PreparedQuery:
     prepare_time: float = 0.0
     # learned on first execution ------------------------------------- #
     executions: int = 0
-    masks: tuple | None = None          # (pass_masks, pass_np, after)
+    masks: tuple | None = None          # (pass_masks, HostMasks, after)
     # host-only serializable form of `masks` — (pass_np, after) with no
     # device tensors.  Written by snapshot serialization
     # (repro_torch.serve.snapshot); `_candidate_masks` rebuilds the device
@@ -432,9 +457,11 @@ class Engine:
     def _candidate_masks(self, pq: PreparedQuery,
                          counts: CheckCounts) -> tuple:
         """Per-node candidate pass specs.  With the check on, each node
-        gets a [N] bool mask.  Without it the candidate set IS the IDMap
-        interval — represented as a (lo, hi) pair instead of materializing
-        an all-true [N] mask per query node (edge_pairs and
+        whose check runs gets a [N] bool mask on the device, a row of the
+        buffer ``check_template`` fills; the host form (``HostMasks``) is
+        read only where asked for.  Elsewhere the candidate set IS the
+        IDMap interval — represented as a (lo, hi) pair instead of
+        materializing an all-true [N] mask per query node (edge_pairs and
         single_node_table consume both forms), so the wildcard path
         allocates nothing per node.  Deterministic per (dataset,
         template): cached on the PreparedQuery, so warm executions skip
@@ -459,40 +486,22 @@ class Engine:
             return pq.masks
         cfg = self.cfg
         query, iv = pq.query, pq.iv
-        n = self.graph.num_nodes
-        pass_masks: dict[int, object] = {}
-        pass_np: dict[int, np.ndarray | None] = {}
-        after = 0
-        for comp in pq.comps:
-            for q in comp:
-                lo, hi = int(iv[q, 0]), int(iv[q, 1])
-                if pq.use_check:
-                    mask = np.zeros(n, dtype=bool)
-                    reqs = build_requirements(query, comp, q,
-                                              min(cfg.d_check, self.ni.d_max), iv)
-                    ok = np.ones(hi - lo, dtype=bool)
-                    if cfg.use_bloom and hi > lo:
-                        ok &= bloom_prefilter(self._bloom_sigs(),
-                                              self.ni.entries[1], reqs,
-                                              lo, hi, impl=cfg.impl,
-                                              device=self.device)
-                    if ok.any():
-                        ok &= check_interval_candidates(
-                            self.ni, reqs, lo, hi,
-                            min(cfg.d_check, self.ni.d_max),
-                            impl=cfg.impl, chunk=cfg.chunk,
-                            device_cache=self._dev_cache,
-                            counts=counts,
-                            device=self.device)
-                    mask[lo:hi] = ok
-                    pass_np[q] = mask
-                    pass_masks[q] = torch.as_tensor(mask, device=self.device)
-                    after += int(mask.sum())
-                else:
-                    pass_np[q] = None
-                    pass_masks[q] = (lo, hi)
-                    after += hi - lo
-        pq.masks = (pass_masks, pass_np, after)
+        order = [(q, comp) for comp in pq.comps for q in comp]
+        if pq.use_check:
+            d_check = min(cfg.d_check, self.ni.d_max)
+            nodes = [(build_requirements(query, comp, q, d_check, iv),
+                      int(iv[q, 0]), int(iv[q, 1])) for q, comp in order]
+            specs, after = check_template(
+                self.ni, nodes, d_check, n=self.graph.num_nodes,
+                impl=cfg.impl, chunk=cfg.chunk,
+                device_cache=self._dev_cache, counts=counts,
+                device=self.device,
+                bloom=self._bloom_verdict if cfg.use_bloom else None)
+        else:
+            specs = [(int(iv[q, 0]), int(iv[q, 1])) for q, _ in order]
+            after = sum(hi - lo for lo, hi in specs)
+        pass_masks = {q: spec for (q, _), spec in zip(order, specs)}
+        pq.masks = (pass_masks, HostMasks(pass_masks), after)
         return pq.masks
 
     def execute_prepared(self, pq: PreparedQuery,
@@ -686,6 +695,17 @@ class Engine:
         if "edges" not in self._dev_cache:
             self._dev_cache["edges"] = self.upload("edges")
         return self._dev_cache["edges"]
+
+    def _bloom_verdict(self, reqs, lo: int, hi: int) -> torch.Tensor:
+        """The bloom prefilter's [hi - lo] verdict on the device, from the
+        signatures and the 1-hop overflow bits the engine keeps there."""
+        if (1, 1) not in self._dev_cache:
+            self._dev_cache[(1, 1)] = upload_entry(self.ni, 1, 1,
+                                                   self.device)
+        return bloom_prefilter(self._bloom_sigs(), self.ni.entries[1], reqs,
+                               lo, hi, impl=self.cfg.impl,
+                               device=self.device,
+                               overflow=self._dev_cache[(1, 1)][2])
 
     def _bloom_sigs(self) -> torch.Tensor:
         """The 1-hop bloom signatures on the engine's device: built on the

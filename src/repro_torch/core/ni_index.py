@@ -55,12 +55,6 @@ class NIEntry:
         np.cumsum(np.minimum(self.count, self.cap), out=out[1:])
         return out
 
-    @cached_property
-    def overflowed(self) -> list:
-        """The rows whose overflow bit is set, ascending (a list, for
-        ``bisect``).  Built on first use."""
-        return np.flatnonzero(self.overflow).tolist()
-
 
 @dataclass
 class NIIndex:

@@ -11,7 +11,10 @@ Device side counts, per exact distance, the candidates' NI ids in each
 interval, cumulative-sums over distance and compares against the
 requirements: on CUDA all of it in one launch of the interval_count
 kernel's node check per query node.  Overflowed NI entries auto-pass
-(prune only on certain information).
+(prune only on certain information).  The verdict stays on the device
+(``check_template``): each launch writes its node's pass mask row in place
+and counts its passes there, and the host reads the counts once a
+template.
 
 The gStore-style bloom prefilter (``bloom_prefilter``, with
 ``EngineConfig.use_bloom``) tests 1-hop bit signatures of exact keywords
@@ -19,7 +22,6 @@ with the bitmask_contains kernel before the check.
 """
 from __future__ import annotations
 
-from bisect import bisect_left
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -117,13 +119,17 @@ class CheckCounts:
     """What the check did, summed over the query nodes it ran for: the
     nodes, the candidates that entered, those that passed, those that
     passed with an overflowed NI row in a checked segment (passed
-    untested there), and the stored ids of the checked segments' rows.
-    Counted from the NI index's host arrays: no device read."""
+    untested there), the stored ids of the checked segments' rows, and
+    the times the check made the host wait on the device (``syncs``: a
+    read, or an upload that blocks).  nodes, candidates and ids_read come
+    from the NI index's host arrays; passed and overflow_passed from the
+    launches' counters, in the check's one read."""
     nodes: int = 0
     candidates: int = 0
     passed: int = 0
     overflow_passed: int = 0
     ids_read: int = 0
+    syncs: int = 0
 
     def add(self, other: "CheckCounts") -> None:
         for k, v in vars(other).items():
@@ -144,41 +150,11 @@ def upload_entry(ni: NIIndex, sign: int, d: int, device) -> tuple:
             torch.as_tensor(e.overflow, device=device))
 
 
-def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
-                              lo: int, hi: int, d_check: int,
-                              *, impl: str = "auto",
-                              chunk: int = 8192,
-                              device_cache: dict | None = None,
-                              counts: CheckCounts,
-                              device) -> np.ndarray:
-    """Pass mask (bool [hi-lo]) for candidates lo..hi-1 of one query node.
-
-    device: where the NI tensors live and the check runs; required, so a
-    caller never lands on the CPU by leaving it out.
-    device_cache: persistent {(sign, d): (ids, lens, overflow) tensors on
-    `device`} so the NI tensors, each row's stored length min(count, cap)
-    and the overflow bits are uploaded once per engine, not per query.
-    The reference's loop over candidate chunks, directions and distances
-    (``repro.core.signature._gather_count`` and the host-side sums) is
-    one ``ops.interval_check`` over the node's segments: on CUDA one
-    launch and one copy of the verdict back to the host; on the CPU the
-    plain version, in chunks of ``chunk`` candidates.
-    counts: where a check that ran adds what it did (``CheckCounts``),
-    read from the entries' host summaries (``NIEntry.stored_prefix``,
-    ``NIEntry.overflowed``): no device read."""
-    n_cand = hi - lo
-    out = np.ones(n_cand, dtype=bool)
-    if reqs.empty or n_cand == 0:
-        return out
-    d_check = min(d_check, ni.d_max)
-    cache = device_cache if device_cache is not None else {}
-
-    def dev_entry(sign, d):
-        key = (sign, d)
-        if key not in cache:
-            cache[key] = upload_entry(ni, sign, d, device)
-        return cache[key]
-
+def _segments(reqs: NodeReqs, d_check: int, dev_entry) -> tuple:
+    """(segments, keys) of one node's check: per direction with a
+    requirement, its distances 1 up to the last that requires, each an
+    ``ops.CheckSegment`` on the entry ``dev_entry(sign, d)`` gives, keyed
+    (sign, d)."""
     segments, keys = [], []
     for sign, dreq in ((+1, reqs.fwd), (-1, reqs.bwd)):
         if dreq is None or not dreq.need.any():
@@ -190,28 +166,113 @@ def check_interval_candidates(ni: NIIndex, reqs: NodeReqs,
                 *dev_entry(sign, d), lo=dreq.lo, hi=dreq.hi,
                 need=need if need.sum() > 0 else None, first=d == 1))
             keys.append((sign, d))
-    if not segments:
-        return out
-    ok = to_host(ops.interval_check(segments, lo, hi, impl=impl,
-                                    chunk=chunk))
-    counts.add(_count(ni, keys, lo, hi, ok))
-    return ok
+    return segments, keys
 
 
-def _count(ni: NIIndex, keys: list, lo: int, hi: int,
-           ok: np.ndarray) -> CheckCounts:
-    """The counts of one node's check over candidates lo..hi-1, whose
-    verdict is ``ok``, over the segments ``keys``."""
-    ids_read, over = 0, set()
-    for sign, d in keys:
-        e = ni.entries[sign * d]
-        ids_read += int(e.stored_prefix[hi] - e.stored_prefix[lo])
-        rows = e.overflowed
-        over.update(rows[bisect_left(rows, lo):bisect_left(rows, hi)])
-    return CheckCounts(nodes=1, candidates=hi - lo,
-                       passed=int(np.count_nonzero(ok)),
-                       overflow_passed=sum(bool(ok[r - lo]) for r in over),
-                       ids_read=ids_read)
+def _buffers(q: int, n: int, device) -> tuple:
+    """Pass mask rows [q, n] bool and counters [q, 3] int32 in one buffer,
+    zeroed by one memset."""
+    off = -(-q * n // 4) * 4
+    buf = torch.zeros(off + 12 * q, dtype=torch.uint8, device=device)
+    return (buf[:q * n].view(torch.bool).view(q, n),
+            buf[off:].view(torch.int32).view(q, 3))
+
+
+def check_template(ni: NIIndex, nodes: list, d_check: int, *, n: int,
+                   impl: str = "auto", chunk: int = 8192,
+                   device_cache: dict | None = None,
+                   counts: CheckCounts, device, bloom=None) -> tuple:
+    """The check of one template's query nodes, its verdict kept on
+    ``device``.  nodes: a (NodeReqs, lo, hi) a node, its candidates
+    lo..hi-1 of the n graph nodes.  Returns (specs, after): a pass spec a
+    node, and the candidates that pass, summed over the nodes.
+
+    A node whose check runs gets row q of one [Q, n] bool buffer, zeroed
+    by one memset; its one ``ops.interval_check`` writes the verdict into
+    the row in place and adds its passes (and passes with an overflowed
+    row) to the row's counters on the device.  A node whose check does not
+    run (no requirement, or no candidate) passes its interval: the spec
+    (lo, hi).  The nodes' bounds and needs (``ops.check_words``) go up in
+    one upload that does not wait, every launch is queued, and the host
+    reads the [Q, 3] counters once: the one time it waits
+    (``CheckCounts.syncs``).
+
+    device: where the NI tensors live and the check runs; required, so a
+    caller never lands on the CPU by leaving it out.  device_cache:
+    persistent {(sign, d): (ids, lens, overflow) tensors on `device`}, so
+    the NI tensors are uploaded once per engine, not per query (that one
+    upload is the engine's set-up, not counted in ``syncs``).  bloom: None,
+    or bloom(reqs, lo, hi) -> the prefilter's [hi - lo] bool verdict on the
+    device (``bloom_prefilter``).  The host reads whether it passes any
+    candidate (a sync); where it passes none the node is not checked and
+    its row stays false, else its verdict is ANDed into the row after the
+    check, and the row's count read.  counts: gets what the check did:
+    nodes, candidates and ids_read from the entries' host summaries
+    (``NIEntry.stored_prefix``), passed and overflow_passed, of the
+    check's own verdict, from the counters."""
+    d_check = min(d_check, ni.d_max)
+    cache = device_cache if device_cache is not None else {}
+
+    def dev_entry(sign, d):
+        key = (sign, d)
+        if key not in cache:
+            cache[key] = upload_entry(ni, sign, d, device)
+        return cache[key]
+
+    specs = [(lo, hi) for _, lo, hi in nodes]
+    runs = []                       # (node, segments, keys, words)
+    for i, (reqs, lo, hi) in enumerate(nodes):
+        if not reqs.empty and hi > lo:
+            segments, keys = _segments(reqs, d_check, dev_entry)
+            if segments:
+                runs.append((i, segments, keys, ops.check_words(segments)))
+    if not runs:
+        return specs, sum(hi - lo for _, lo, hi in nodes)
+    data = ops.upload(np.concatenate([w for *_, w in runs]), device)
+    rows, tally = _buffers(len(runs), n, device)
+    checked, syncs, at = [], 0, 0
+    for r, (i, segments, keys, words) in enumerate(runs):
+        _, lo, hi = nodes[i]
+        specs[i] = row = rows[r]
+        data_at, at = at, at + len(words)
+        keep = None
+        if bloom is not None:
+            keep = bloom(nodes[i][0], lo, hi)
+            syncs += 1
+            if not bool(to_host(keep.any())):
+                continue            # no candidate left: no check
+        ops.interval_check(segments, lo, hi, impl=impl, chunk=chunk,
+                           out=row, tally=tally[r, :2], data=data,
+                           data_at=data_at)
+        if keep is not None:
+            row[lo:hi] &= keep
+            tally[r, 2].copy_(row.sum())
+        checked.append((r, keys, lo, hi))
+    got = to_host(tally)
+    syncs += 1
+    counts.add(_count(ni, checked, got, syncs))
+    kept = got[:, 2] if bloom is not None else got[:, 0]
+    ran = {i for i, *_ in runs}
+    return specs, int(kept.sum()) + sum(
+        hi - lo for i, (_, lo, hi) in enumerate(nodes) if i not in ran)
+
+
+def _count(ni: NIIndex, checked: list, tally: np.ndarray,
+           syncs: int) -> CheckCounts:
+    """The counts of one template's check: the nodes ``checked`` (counter
+    row, segment keys, lo, hi), whose counters read ``tally``, and the
+    host's waits."""
+    out = CheckCounts(syncs=syncs)
+    for r, keys, lo, hi in checked:
+        ids_read = 0
+        for sign, d in keys:
+            e = ni.entries[sign * d]
+            ids_read += int(e.stored_prefix[hi] - e.stored_prefix[lo])
+        out.add(CheckCounts(nodes=1, candidates=hi - lo,
+                            passed=int(tally[r, 0]),
+                            overflow_passed=int(tally[r, 1]),
+                            ids_read=ids_read))
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -260,27 +321,31 @@ def bloom_query_sig(required_ids: np.ndarray,
 
 
 def bloom_prefilter(sigs: torch.Tensor, entry, reqs: NodeReqs,
-                    lo: int, hi: int, *, impl: str = "auto",
-                    device) -> np.ndarray:
-    """Pass mask over candidates lo..hi using 1-hop bloom signatures.
+                    lo: int, hi: int, *, impl: str = "auto", device,
+                    overflow: torch.Tensor | None = None) -> torch.Tensor:
+    """Pass mask (bool [hi - lo] on `device`) over candidates lo..hi using
+    1-hop bloom signatures.
 
     sigs: ``build_bloom(entry)`` as int32 bit patterns on `device` (the
     engine uploads it once); the kernel reads the row slice sigs[lo:hi]
     in place.  device: where the query signature goes and the test runs;
-    required, like check_interval_candidates'.  Only exact keywords
-    (interval width 1) participate; wider intervals cannot be expressed
-    as bits (the reason the paper's NI generalizes gStore-style
-    signatures).  Overflowed entries auto-pass."""
+    required, like check_template's.  overflow: the entry's overflow bits
+    on `device`, where the caller keeps them; else the slice is uploaded.
+    Only exact keywords (interval width 1) participate; wider intervals
+    cannot be expressed as bits (the reason the paper's NI generalizes
+    gStore-style signatures).  Overflowed entries auto-pass."""
     n_cand = hi - lo
     dreq = reqs.fwd
     if dreq is None or not dreq.need.any():
-        return np.ones(n_cand, dtype=bool)
+        return torch.ones(n_cand, dtype=torch.bool, device=device)
     exact = [(int(l),) for l, h, need in
              zip(dreq.lo, dreq.hi, dreq.need[0])
              if h - l == 1 and need > 0] if dreq.need.shape[0] else []
     if not exact:
-        return np.ones(n_cand, dtype=bool)
+        return torch.ones(n_cand, dtype=torch.bool, device=device)
     required = np.asarray([e[0] for e in exact], np.int64)
-    qsig = ops.bits32(bloom_query_sig(required)).to(device)
+    qsig = ops.upload(bloom_query_sig(required).view(np.int32), device)
     ok = ops.bitmask_contains(sigs[lo:hi], qsig, impl=impl)
-    return to_host(ok).astype(bool) | entry.overflow[lo:hi]
+    over = (torch.as_tensor(entry.overflow[lo:hi], device=device)
+            if overflow is None else overflow[lo:hi])
+    return ok.bool() | over

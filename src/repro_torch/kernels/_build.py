@@ -147,6 +147,22 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def upload(words, device):
+    """int32 ``words`` (a NumPy array or sequence) as a tensor on
+    ``device``.  On CUDA through pinned host memory, with the copy queued
+    on the stream: the host does not wait for the device, as a copy from
+    pageable memory makes it wait."""
+    import numpy as np
+    import torch
+    host = torch.from_numpy(np.ascontiguousarray(words, dtype=np.int32))
+    device = torch.device(device)
+    if device.type != "cuda" or host.numel() == 0:
+        return host.to(device)
+    pinned = torch.empty(host.shape, dtype=torch.int32, pin_memory=True)
+    pinned.copy_(host)
+    return pinned.to(device, non_blocking=True)
+
+
 def check_cuda_int32(*tensors) -> None:
     """The kernels take contiguous int32 tensors on one CUDA device."""
     import torch

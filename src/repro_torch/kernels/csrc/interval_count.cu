@@ -31,7 +31,11 @@
 //       ok &= all_j(cum[j] >= need[j]) | over.
 //   Candidates are a contiguous id range, so no cands array is read, and
 //   the reference's chunks (which bound its [chunk, cap] gather block)
-//   are gone: the rows are read in place.
+//   are gone: the rows are read in place.  The caller points ok at column
+//   lo of the node's [N] pass mask, so the verdict is written in place,
+//   and gives two counters, to which the launch adds the candidates that
+//   passed and those that passed with an overflowed row in any segment:
+//   the check's counts, with no copy of the verdict to the host.
 //
 // Design of interval_check: one warp per candidate, lane j holding
 // interval base + j in registers (rounds of 32 for nj > 32).  The
@@ -47,13 +51,16 @@
 // interval costs 4 J shuffles and votes, which issue at a quarter of the
 // ALU rate.  Longer prefixes bisect, lanes 0-15 on the lower and lanes
 // 16-31 on the upper bounds.  The verdict is one __all_sync per segment
-// with need; a warp whose verdict is false stops.
+// with need; a warp whose verdict is false stops.  Lane 0 of a warp
+// that passes adds 1 to the pass counter, and 1 to the other counter
+// where a row it read had overflowed.
 //
 // Bound on the H100: memory.  interval_count: each candidate row's stored
 // prefix once, plus cands, lens, lo, hi and the output.  interval_check:
 // each candidate's stored prefix in each segment once, its length and
-// overflow bit, and one output byte per candidate.  Neither comes near
-// it: interval_count waits on its chain of dependent loads, and
+// overflow bit, and one output byte per candidate (the counters' atomics,
+// two a passing candidate at most, add no bytes that matter).  Neither
+// comes near it: interval_count waits on its chain of dependent loads, and
 // interval_check spends a warp's bookkeeping on rows of about 5 ids, so
 // its time goes to instructions and load latency per candidate, not to
 // bytes (PERF.md).
@@ -122,13 +129,15 @@ __global__ void interval_check_kernel(const __grid_constant__ Segments args,
                                       int nseg, int max_nj,
                                       const int* __restrict__ data,
                                       int first, int n_cand,
-                                      unsigned char* __restrict__ ok_out) {
+                                      unsigned char* __restrict__ ok_out,
+                                      int* __restrict__ tally) {
   const long long warp =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n_cand) return;        // uniform across the warp
   const long long node = first + warp;
   bool ok = true;
+  bool any_over = false;             // an overflowed row in any segment
   for (int base = 0; ok && base < max_nj; base += 32) {
     const int j = base + lane;       // this lane's interval
     int cum = 0;
@@ -163,6 +172,7 @@ __global__ void interval_check_kernel(const __grid_constant__ Segments args,
         const Segment& g = args.seg[s0 + k];
         if (s0 + k >= nseg) break;
         if (g.flags & FIRST) {
+          any_over |= over;
           cum = 0;
           over = false;
         }
@@ -201,8 +211,16 @@ __global__ void interval_check_kernel(const __grid_constant__ Segments args,
         }
       }
     }
+    any_over |= over;
   }
-  if (lane == 0) ok_out[warp] = ok;
+  if (lane != 0) return;
+  ok_out[warp] = ok;
+  // a pass has read every segment in the first round (each has nj >= 1),
+  // so any_over holds every segment's overflow bit
+  if (ok) {
+    atomicAdd(tally, 1);
+    if (any_over) atomicAdd(tally + 1, 1);
+  }
 }
 
 }  // namespace
@@ -224,10 +242,12 @@ extern "C" int interval_count(const int* ids, int cap, const int* lens,
 
 // hdr: nseg segments of 8 host int64 words (ids, lens or 0, overflow,
 // cap, flags, nj, offset in data of lo[nj], hi[nj], need[nj], unused);
-// data: device int32; ok: n_cand bytes.
+// data: device int32; ok: n_cand bytes, candidate first + t's at ok[t];
+// tally: two device int32 counters, to which the passes and the passes
+// with an overflowed row in some segment are added.
 extern "C" int interval_check(const long long* hdr, int nseg, int max_nj,
                               const int* data, int first, int n_cand,
-                              unsigned char* ok, void* stream) {
+                              unsigned char* ok, int* tally, void* stream) {
   if (nseg < 1 || nseg > MAX_SEG) return (int)cudaErrorInvalidValue;
   Segments args = {};
   for (int s = 0; s < nseg; ++s) {
@@ -243,7 +263,7 @@ extern "C" int interval_check(const long long* hdr, int nseg, int max_nj,
     long long blocks = ((long long)n_cand * 32 + threads - 1) / threads;
     interval_check_kernel<<<(unsigned)blocks, threads, 0,
                             (cudaStream_t)stream>>>(args, nseg, max_nj, data,
-                                                    first, n_cand, ok);
+                                                    first, n_cand, ok, tally);
   }
   return (int)cudaGetLastError();
 }

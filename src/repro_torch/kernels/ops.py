@@ -20,10 +20,11 @@ import numpy as np
 import torch
 
 from . import ref as _ref
-from ._build import KernelError
+from ._build import KernelError, upload
 from .ref import CheckSegment
 from .bitmask_contains import bitmask_contains_cuda
-from .interval_count import interval_check_cuda, interval_count_cuda
+from .interval_count import (check_words, interval_check_cuda,
+                             interval_count_cuda)
 from .merge_probe import merge_probe_cuda
 from .sorted_intersect import intersect_any_cuda, intersect_any_ragged_cuda
 
@@ -139,13 +140,19 @@ def interval_count(ids, lo, hi, *, cands=None, lens=None,
 
 
 def interval_check(segments, lo: int, hi: int, *, impl: str = "auto",
-                   chunk: int = 8192) -> torch.Tensor:
+                   chunk: int = 8192, out=None, tally=None, data=None,
+                   data_at: int = 0) -> torch.Tensor:
     """ok [hi - lo] bool: the neighborhood check of one query node over
     candidates lo..hi-1 and its ``ref.CheckSegment`` list (each
     direction's distances in order, the first marked ``first``, one
     interval count J per direction).  On CUDA one launch covers every
     candidate and segment; on the CPU the plain version runs in chunks of
-    ``chunk`` candidates."""
+    ``chunk`` candidates.  With ``out`` (a [N] bool pass mask row) the
+    verdict is written to out[lo:hi] and returned; with ``tally`` (two
+    int32 counters) the passes and the passes with an overflowed row in
+    any segment are added to it, on the device.  ``data``, ``data_at``:
+    the segments' ``check_words`` already on the device, from word
+    data_at on (CUDA only)."""
     segments = list(segments)
     if not segments or not segments[0].first:
         raise ValueError("expected segments, the first marked first")
@@ -156,9 +163,14 @@ def interval_check(segments, lo: int, hi: int, *, impl: str = "auto",
                                       and len(s.need) != len(s.lo))
            for s in segments):
         raise ValueError("expected lo, hi and need of one length")
+    if any(len(s.lo) == 0 for s in segments):
+        # the kernel reads a segment's overflow bits in its first round
+        raise ValueError("expected at least one interval a segment")
     if on_cuda(segments[0].ids, impl):
-        return interval_check_cuda(segments, lo, hi)
-    return _ref.interval_check_ref(segments, lo, hi, chunk)
+        return interval_check_cuda(segments, lo, hi, out=out, tally=tally,
+                                   data=data, data_at=data_at)
+    return _ref.interval_check_ref(segments, lo, hi, chunk, out=out,
+                                   tally=tally)
 
 
 def bitmask_contains(cand, query, *, impl: str = "auto"):

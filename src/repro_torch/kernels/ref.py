@@ -87,17 +87,25 @@ class CheckSegment(NamedTuple):
 
 
 def interval_check_ref(segments: Sequence[CheckSegment], lo: int, hi: int,
-                       chunk: int = 8192) -> torch.Tensor:
+                       chunk: int = 8192, *, out: torch.Tensor | None = None,
+                       tally: torch.Tensor | None = None) -> torch.Tensor:
     """ok [hi - lo] bool: the neighborhood check's verdict for candidate
     nodes lo..hi-1 (``repro.core.signature.check_interval_candidates``).
     Per direction, the counts of each candidate's NI row in each interval
     (interval_count_gather_ref) sum over distance into cum, the overflow
     bits into over; a segment with need sets
     ``ok &= all_j(cum >= need) | over``.  Candidates go in chunks of
-    ``chunk``, which bound the gathered [chunk, cap] block."""
+    ``chunk``, which bound the gathered [chunk, cap] block.
+
+    out: a [N] bool pass mask row; the verdict goes to out[lo:hi], which
+    is returned, and the rest of the row is not touched.  tally: two
+    counters, to which the candidates that passed and those that passed
+    with an overflowed row in any segment are added."""
     dev = segments[0].ids.device
     n = hi - lo
-    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    ok = torch.ones(n, dtype=torch.bool, device=dev) if out is None \
+        else out[lo:hi]
+    ok.fill_(True)
     bounds = [(torch.as_tensor(s.lo, dtype=torch.int32, device=dev),
                torch.as_tensor(s.hi, dtype=torch.int32, device=dev),
                None if s.need is None
@@ -117,6 +125,12 @@ def interval_check_ref(segments: Sequence[CheckSegment], lo: int, hi: int,
             over |= seg.overflow[cands.long()]
             if need is not None:
                 ok_c &= (cum >= need).all(dim=1) | over
+    if tally is not None:
+        any_over = torch.zeros(n, dtype=torch.bool, device=dev)
+        for s in segments:
+            any_over |= s.overflow[lo:hi].bool()
+        tally[0] += ok.sum().to(tally.dtype)
+        tally[1] += (ok & any_over).sum().to(tally.dtype)
     return ok
 
 

@@ -86,12 +86,12 @@ _PQ_FIELD_DEFAULTS = {"join_est_seq": list}
 
 def _pq_to_blob(pq: PreparedQuery) -> dict:
     """Host-only dict of one PreparedQuery.  Device-resident masks are
-    dropped for their numpy form (`masks_host`); everything else is plain
-    Python / numpy already."""
+    dropped for their numpy form (`masks_host`, read from the device
+    here); everything else is plain Python / numpy already."""
     blob = {k: getattr(pq, k) for k in _PQ_FIELDS}
     if pq.masks is not None:
         _, pass_np, after = pq.masks
-        blob["masks_host"] = (pass_np, after)
+        blob["masks_host"] = (dict(pass_np), after)
     else:
         blob["masks_host"] = pq.masks_host
     # join_seq caps may be CapEstimate (an int subclass carrying a

@@ -1,13 +1,15 @@
 """What the signature check says it did (``signature.CheckCounts``): the
-candidates that entered, passed, passed with an overflowed NI row, and the
-stored ids of the checked rows, against brute-force counts from the NI
-entries, on a graph with a hub past the index's ``max_cap``.  The counts
-read the host arrays only, count nothing on a warm plan, and reach
+candidates that entered, passed, passed with an overflowed NI row, the
+stored ids of the checked rows and the host's waits, against brute-force
+counts from the NI entries, on a graph with a hub past the index's
+``max_cap``.  The passes come from the launches' counters in the check's
+one read; the counts add nothing on a warm plan, and reach
 ``QueryServer.telemetry()["check"]`` and the ``check`` span."""
 from dataclasses import replace
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import Dataset, RDFGraph, engine as engine_mod
 from repro_torch.core import signature
@@ -19,7 +21,8 @@ from repro_torch.obs import trace as trace_mod
 from repro_torch.serve import QueryServer
 
 MAX_CAP = 8
-FIELDS = ("nodes", "candidates", "passed", "overflow_passed", "ids_read")
+FIELDS = ("nodes", "candidates", "passed", "overflow_passed", "ids_read",
+          "syncs")
 
 
 @pytest.fixture(scope="module")
@@ -77,6 +80,8 @@ def brute(eng, pq) -> CheckCounts:
             ok = pass_np[q][lo:hi]
             out.add(CheckCounts(1, hi - lo, int(ok.sum()),
                                 int((ok & over).sum()), ids))
+    # one read of the counters where a node was checked
+    out.syncs = int(out.nodes > 0)
     return out
 
 
@@ -187,3 +192,71 @@ def test_telemetry_and_the_check_span_carry_the_counts(ds, queries):
     assert sib.check_counts is srv.engine.check_counts
     srv.apply_delta(inserts=[("R/000", "p2", "R/001")])
     assert srv.telemetry()["check"] == t1
+
+
+def test_syncs_one_a_cold_checked_execution_none_warm(ds, queries):
+    """The check reads the device once a cold execution that checks a
+    node (its counters) and never on a warm plan."""
+    eng = make_engine(ds)
+    pqs = [eng.prepare(q) for q in queries]
+    for pq in pqs:
+        before = eng.check_counts.snapshot()
+        eng.execute_prepared(pq)
+        got = eng.check_counts.snapshot()
+        assert got["syncs"] - before["syncs"] \
+            == int(got["nodes"] > before["nodes"])
+    assert eng.check_counts.syncs > 0
+    cold = eng.check_counts.snapshot()
+    for pq in pqs:
+        eng.execute_prepared(pq)
+    assert eng.check_counts.snapshot() == cold
+
+
+def test_the_cold_check_keeps_its_verdict_on_the_device(ds, queries,
+                                                        monkeypatch):
+    """On the cold path no host [N] mask is built and none uploaded: the
+    check uploads its segments' words once, makes one interval_check a
+    checked node, each writing a row of one [Q, N] buffer, and reads the
+    [Q, 3] counters once; the host form is read only when asked for."""
+    from repro_torch.kernels import ops
+    eng = make_engine(ds)
+    n = ds.graph.num_nodes
+    uploads, launches, reads = [], [], []
+    real_upload, real_check = ops.upload, ops.interval_check
+    real_read = trace_mod.to_host
+
+    def upload(words, device):
+        uploads.append(len(words))
+        return real_upload(words, device)
+
+    def check(segments, lo, hi, **kw):
+        launches.append(kw["out"])
+        return real_check(segments, lo, hi, **kw)
+
+    def read(t, counted=True):
+        reads.append(tuple(t.shape))
+        return real_read(t, counted)
+    monkeypatch.setattr(ops, "upload", upload)
+    monkeypatch.setattr(ops, "interval_check", check)
+    monkeypatch.setattr(signature, "to_host", read)
+    for q in queries:
+        pq = eng.prepare(q)
+        before = eng.check_counts.nodes
+        uploads.clear(), launches.clear(), reads.clear()
+        eng.execute_prepared(pq)
+        nodes = eng.check_counts.nodes - before
+        assert len(launches) == nodes
+        if not nodes:
+            assert not uploads and not reads
+            continue
+        assert len(uploads) == 1 and uploads[0] < n
+        assert reads == [(nodes, 3)]
+        pass_masks, host, _ = pq.masks
+        rows = [m for m in pass_masks.values() if not isinstance(m, tuple)]
+        assert len(rows) == nodes
+        base = rows[0].untyped_storage().data_ptr()
+        assert all(r.shape == (n,) and r.dtype == torch.bool
+                   and r.untyped_storage().data_ptr() == base
+                   for r in rows)
+        assert all(any(r is row for row in rows) for r in launches)
+        assert host._host == {}             # no host form read yet

@@ -288,6 +288,114 @@ def test_interval_check_kernel(dev, j):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("j", [1, 8, 40])
+def test_interval_check_writes_rows_in_place_and_counts(dev, j):
+    """The launch's in-place verdict and its device counters against the
+    verdict of the plain version and the host's counts (passes, and passes
+    with an overflowed row in any segment): four nodes writing rows of one
+    shared [Q, N] buffer, their words in one packed upload, over random
+    segments with overflowed rows, an empty range and a range that ends
+    at row N; columns outside lo..hi stay false."""
+    from repro_torch.kernels.interval_count import check_words
+    rng = np.random.default_rng(100 + j)
+    n = 3001
+    entries = [_ni_entry(rng, n, 8, np.minimum(rng.geometric(0.3, n), 8)),
+               _ni_entry(rng, n, 64, np.minimum(rng.geometric(0.05, n), 64)),
+               _ni_entry(rng, n, 40, np.minimum(rng.geometric(0.1, n), 40))]
+    dev_entries = [(_on(dev, i), _on(dev, ln), torch.as_tensor(o, device=dev))
+                   for i, ln, o in entries]
+
+    def node(k):
+        segs = []
+        for sign_j, picks in ((k, (0, 1)), (max(k // 2, 1), (2,))):
+            lo = np.sort(rng.integers(0, 5000, sign_j))
+            hi = lo + rng.integers(0, 2500, sign_j)
+            for d, e in enumerate(picks):
+                ids, lens, over = dev_entries[e]
+                need = rng.integers(0, 3, sign_j) * (rng.random(sign_j) < 0.4)
+                segs.append(ref.CheckSegment(ids, lens, over, lo, hi, need,
+                                             d == 0))
+        return segs
+
+    ranges = [(0, n), (5, n), (17, 17), (40, 40 + 8 * 37 + 3)]
+    nodes = [node(j) for _ in ranges]
+    words = [check_words(segs) for segs in nodes]
+    data = ops.upload(np.concatenate(words), dev)
+    rows = torch.zeros((len(nodes), n), dtype=torch.bool, device=dev)
+    tally = torch.zeros((len(nodes), 2), dtype=torch.int32, device=dev)
+    kernel = ops.cuda_kernels()["interval_count"]
+    at = 0
+    for q, (segs, (lo, hi)) in enumerate(zip(nodes, ranges)):
+        before = kernel.launches
+        got = ops.interval_check(segs, lo, hi, out=rows[q], tally=tally[q],
+                                 data=data, data_at=at)
+        assert kernel.launches == before + (hi > lo)
+        assert got.numel() == hi - lo
+        assert hi == lo or got.data_ptr() == rows[q].data_ptr() + lo
+        at += len(words[q])
+    overflowed = 0
+    for q, (segs, (lo, hi)) in enumerate(zip(nodes, ranges)):
+        want = ref.interval_check_ref(segs, lo, hi)
+        over = torch.zeros(hi - lo, dtype=torch.bool, device=dev)
+        for seg in segs:
+            over |= seg.overflow[lo:hi]
+        assert torch.equal(rows[q, lo:hi], want)
+        assert not rows[q, :lo].any() and not rows[q, hi:].any()
+        host = [int(want.sum()), int((want & over).sum())]
+        assert tally[q].tolist() == host
+        overflowed += host[1]
+        # the plain version's counters agree on the card's tensors too
+        t = torch.zeros(2, dtype=torch.int32, device=dev)
+        ref.interval_check_ref(segs, lo, hi, tally=t)
+        assert t.tolist() == host
+    assert overflowed > 0 and 0 < int(tally[:, 0].sum()) < 2 * n
+
+
+def test_cuda_cold_check_waits_once_and_matches_cpu(dev, monkeypatch):
+    """The engine's cold check on the card makes one interval_check_cuda
+    call a checked node and makes the host wait once (the counters'
+    read; torch's sync debug mode sees no other), with the CPU engine's
+    masks and counts."""
+    import warnings
+    from repro_torch.core.signature import CheckCounts
+    dt = T.Dataset.build(TD.DATASETS["dblp"](scale=0.05, seed=1),
+                         cap_quantile=0.9)
+    eg = T.Engine(dt, T.EngineConfig(check_policy="always"))
+    ec = T.Engine(dt, T.EngineConfig(check_policy="always", device="cpu",
+                                     impl="ref"))
+    eg.execute(TD.random_query(dt.graph, size=6, seed=99))  # NI uploaded
+    calls = []
+    real = ops.interval_check_cuda
+    monkeypatch.setattr(ops, "interval_check_cuda",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    checked = 0
+    for s in range(100, 106):
+        q = TD.random_query(dt.graph, size=6, seed=s)
+        pg, pc = eg.prepare(q), ec.prepare(q)
+        cg, cc = CheckCounts(), CheckCounts()
+        calls.clear()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                masks, host, after = eg._candidate_masks(pg, cg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = [w for w in caught if "synchroniz" in str(w.message)]
+        assert len(waits) == cg.syncs == int(cg.nodes > 0)
+        assert len(calls) == cg.nodes
+        _, host_c, after_c = ec._candidate_masks(pc, cc)
+        assert cg == cc and after == after_c
+        for node in masks:
+            a, b = host[node], host_c[node]
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+        checked += cg.nodes
+    assert checked > 0
+
+
 @pytest.mark.parametrize("c,b,j", [(1, 1, 1), (500, 300, 18), (64, 4096, 8)])
 def test_interval_count_kernel(dev, c, b, j):
     rng = np.random.default_rng(c + b + j)

@@ -216,7 +216,7 @@ def test_warm_run_never_replans_or_rechecks(monkeypatch):
     def forbidden(*a, **kw):
         raise AssertionError("warm run re-entered planning or the check")
     for name in ("decide", "plan_table_joins", "plan_connections",
-                 "check_interval_candidates", "build_requirements",
+                 "check_template", "build_requirements",
                  "choose_connection_impl", "bloom_prefilter", "build_bloom"):
         monkeypatch.setattr(tengine, name, forbidden)
     assert bloom.execute_prepared(bpq).result_set() == bcold.result_set()

@@ -172,9 +172,12 @@ NODE_CHECK_GRID = [("lubm", 0.05, "full", "both", 3),
 
 @pytest.mark.parametrize("name,scale,variant,dirs,j", NODE_CHECK_GRID)
 def test_node_check_matches_reference(name, scale, variant, dirs, j):
-    """The port's check (one ops.interval_check over the node's segments,
-    the plain version here) against repro's check_interval_candidates, on
-    NI rows with overflow, one or two directions, J up to 16."""
+    """The port's check of one node (``check_template``: one
+    ops.interval_check over the node's segments, the plain version here,
+    writing its row of the pass masks) against repro's
+    check_interval_candidates, on NI rows with overflow, one or two
+    directions, J up to 16; the row's columns outside lo..hi stay
+    false."""
     gen = {"lubm": lubm_like, "dblp": dblp_like}[name]
     g = gen(scale=scale, seed=1)
     ni_j = build_ni_index(g, d_max=2, variant=variant, cap_quantile=0.9)
@@ -204,14 +207,120 @@ def test_node_check_matches_reference(name, scale, variant, dirs, j):
                 if dirs in ("bwd", "both") else None)
         for lo, hi in ranges:
             want = jsig.check_interval_candidates(ni_j, made[jsig], lo, hi, 2)
-            got = tsig.check_interval_candidates(ni_t, made[tsig], lo, hi, 2,
-                                                 counts=tsig.CheckCounts(),
-                                                 device="cpu")
+            (spec,), _ = tsig.check_template(ni_t, [(made[tsig], lo, hi)],
+                                             2, n=n,
+                                             counts=tsig.CheckCounts(),
+                                             device="cpu")
+            if isinstance(spec, tuple):         # the interval passes
+                assert spec == (lo, hi)
+                got = np.ones(hi - lo, dtype=bool)
+            else:
+                row = spec.numpy()
+                assert not row[:lo].any() and not row[hi:].any()
+                got = row[lo:hi]
             assert got.dtype == bool
             _eq(got, want)
             passed += int(want.sum())
             failed += int((~want).sum())
     assert passed and failed
+
+
+# (dataset, bloom, query seeds, isolated): size-6 templates; with isolated,
+# each with a seventh node of an exact keyword and no edge, a component
+# of its own (``single_node_table``)
+ENGINE_CHECK_GRID = [("lubm", False, range(100, 104), False),
+                     ("dblp", False, range(100, 104), False),
+                     ("dblp", True, range(100, 104), False),
+                     ("lubm", False, range(100, 103), True)]
+
+
+@pytest.mark.parametrize("name,bloom,seeds,isolated", ENGINE_CHECK_GRID)
+def test_engine_check_matches_reference_node_checks(name, bloom, seeds,
+                                                    isolated):
+    """The port engine's cold check (one ``check_template`` a template,
+    the verdict kept in device rows) against repro's per-node
+    check_interval_candidates (and bloom_prefilter first, with bloom):
+    the masks' host form, candidates_after and every CheckCounts field,
+    on NI rows with overflow; and the result sets against the
+    reference engine's."""
+    from repro.core import Dataset as JDataset
+    from repro.core.query import QueryTemplate as JTemplate
+    from repro_torch.core import Dataset as TDataset, Engine, EngineConfig
+    from repro_torch.core.query import QueryTemplate as TTemplate
+    from repro.data import DATASETS as JDATA, random_query as jquery
+    gj, gt = JDATA[name](scale=0.05, seed=1), TD.DATASETS[name](scale=0.05,
+                                                                seed=1)
+    dj = JDataset.build(gj, cap_quantile=0.9)
+    dt = TDataset.build(gt, cap_quantile=0.9)
+    eng = Engine(dt, EngineConfig(check_policy="always", impl="ref",
+                                  device="cpu", use_bloom=bloom))
+    ref = dj.engine("rdf_h")
+    ref.cfg.check_policy, ref.cfg.use_bloom = "always", bloom
+    d_check = min(eng.cfg.d_check, dj.ni.d_max)
+    e1 = dj.ni.entries[1]
+    sigs = jsig.build_bloom(e1)
+    n = gt.num_nodes
+    pruned = 0
+    for s in seeds:
+        qj = jquery(gj, size=6, seed=s, exact_nodes=0.5)
+        qt = TD.random_query(gt, size=6, seed=s, exact_nodes=0.5)
+        if isolated:
+            kw = jquery(gj, size=2, seed=s, exact_nodes=1.0).keywords[0]
+            qj = JTemplate(keywords=qj.keywords + [kw], edges=qj.edges)
+            qt = TTemplate(keywords=qt.keywords + [kw], edges=qt.edges)
+        pq = eng.prepare(qt)
+        before = tsig.CheckCounts(**eng.check_counts.snapshot())
+        res = eng.execute_prepared(pq)
+        assert res.result_set() == ref.execute(qj).result_set()
+        assert [len(c) for c in pq.comps].count(1) == int(isolated)
+        want = tsig.CheckCounts()
+        after = runs = 0
+        for comp in pq.comps:
+            for q in comp:
+                reqs = jsig.build_requirements(qj, comp, q, d_check, pq.iv)
+                lo, hi = int(pq.iv[q, 0]), int(pq.iv[q, 1])
+                ok = np.ones(hi - lo, dtype=bool)
+                if not reqs.empty and hi > lo:
+                    runs += 1
+                    if bloom:
+                        ok &= jsig.bloom_prefilter(sigs, e1, reqs, lo, hi,
+                                                   impl="ref")
+                    if ok.any():
+                        verdict = jsig.check_interval_candidates(
+                            dj.ni, reqs, lo, hi, d_check)
+                        ok &= verdict
+                        over = np.zeros(hi - lo, dtype=bool)
+                        ids = 0
+                        for sign, r in ((1, reqs.fwd), (-1, reqs.bwd)):
+                            if r is None or not r.need.any():
+                                continue
+                            last = max(d + 1 for d in range(r.need.shape[0])
+                                       if r.need[d].any())
+                            for d in range(1, min(d_check, last) + 1):
+                                e = dj.ni.entries[sign * d]
+                                over |= e.overflow[lo:hi]
+                                ids += int(np.minimum(e.count[lo:hi],
+                                                      e.cap).sum())
+                        want.add(tsig.CheckCounts(
+                            1, hi - lo, int(verdict.sum()),
+                            int((verdict & over).sum()), ids))
+                mask = pq.masks[1][q]
+                if mask is None:                # the interval passes
+                    mask = np.zeros(n, dtype=bool)
+                    mask[lo:hi] = True
+                full = np.zeros(n, dtype=bool)
+                full[lo:hi] = ok
+                _eq(mask, full)
+                after += int(ok.sum())
+                pruned += int((~ok).sum())
+        # the counters' one read, and with bloom one read a node of
+        # whether the prefilter passed any candidate
+        want.syncs = int(runs > 0) + (runs if bloom else 0)
+        got = eng.check_counts.snapshot()
+        assert {k: got[k] - v for k, v in before.snapshot().items()} \
+            == want.snapshot()
+        assert res.stats.candidates_after == after
+    assert pruned > 0
 
 
 def test_node_check_chunks_do_not_change_the_verdict():
@@ -234,6 +343,10 @@ def test_node_check_chunks_do_not_change_the_verdict():
         _eq(tops.interval_check(segs, 3, g.num_nodes, chunk=chunk), want)
     with pytest.raises(ValueError):
         tops.interval_check(segs[1:], 0, 4)         # no first segment
+    with pytest.raises(ValueError):                 # a segment of J = 0
+        tops.interval_check([s._replace(lo=s.lo[:0], hi=s.hi[:0],
+                                        need=s.need[:0]) for s in segs],
+                            0, 4)
     with pytest.raises(RuntimeError):
         tops.interval_check(segs, 0, 4, impl="cuda")
 
@@ -761,7 +874,7 @@ def test_bloom_helpers_match_reference():
             sigs_dev, e1, tsig.NodeReqs(tsig.DirectionReqs(lo_iv, hi_iv,
                                                            need), None),
             lo, hi, device="cpu")
-        assert mask.dtype == bool
+        assert mask.dtype == torch.bool
         _eq(mask, want)
         removed += int((~mask).sum())
     assert removed > 0

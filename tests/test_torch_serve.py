@@ -216,8 +216,7 @@ def test_warm_execution_skips_planning_and_check(monkeypatch):
             raise AssertionError("planning re-entered on warm execution")
         with monkeypatch.context() as m:
             for fn in ("plan_table_joins", "plan_connections", "decide",
-                       "check_interval_candidates",
-                       "connection_selectivity", "endpoint_reach",
+                       S.check, "connection_selectivity", "endpoint_reach",
                        "choose_connection_impl"):
                 m.setattr(S.engine_mod, fn, _boom)
             warm = srv.query(pool[1])

@@ -24,8 +24,8 @@ from torch_twin import (PORT, REF, per_stack, run_stats, telemetry_view,
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COLD_PATH = ("plan_table_joins", "plan_connections", "decide",
-             "check_interval_candidates", "connection_selectivity",
-             "endpoint_reach", "choose_connection_impl")
+             "connection_selectivity", "endpoint_reach",
+             "choose_connection_impl")
 
 
 @per_stack
@@ -60,7 +60,7 @@ def _canon_rows(res):
 def _poison(S, m, srv):
     def _boom(*a, **k):
         raise AssertionError("cold path re-entered after restore")
-    for fn in COLD_PATH:
+    for fn in (*COLD_PATH, S.check):
         m.setattr(S.engine_mod, fn, _boom)
     m.setattr(srv.engine, "prepare", _boom)
 
@@ -107,7 +107,7 @@ def test_roundtrip_with_signature_masks(tmp_path, monkeypatch):
         srv2.restore_snapshot(path)
         calls = []
         with monkeypatch.context() as m:
-            m.setattr(S.engine_mod, "check_interval_candidates",
+            m.setattr(S.engine_mod, S.check,
                       lambda *a, **k: calls.append(1))
             res = srv2.query(q)
         assert res.stats.cache_hit and not calls

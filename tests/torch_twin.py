@@ -92,11 +92,15 @@ class Stack(SimpleNamespace):
                                    rows=self.array(rows), count=len(data))
 
 
+# check: the name under which each engine module calls the signature
+# check, per node on the reference, per template on the port
 REF = Stack(name="repro", port=False, core=JC, engine_mod=JENG,
+            check="check_interval_candidates",
             graph_mod=JGRAPH, array=jnp.asarray, matching=JMATCH,
             planner=JPLAN, qmod=JQ, data=JD, obs=JO, metrics=JMET, serve=JS,
             snapshot=JSNAP, testing=JT, faults=JF)
 PORT = Stack(name="repro_torch", port=True, core=TC, engine_mod=TENG,
+             check="check_template",
              graph_mod=TGRAPH, array=torch.as_tensor, matching=TMATCH,
              planner=TPLAN, qmod=TQ, data=TD, obs=TO, metrics=TMET,
              serve=TS, snapshot=TSNAP, testing=TT, faults=TF)
@@ -210,7 +214,7 @@ def run_stats(res) -> dict:
 # counts of what the signature check did (``CheckCounts``' fields).
 PORT_ONLY_TRACE = ("copy_out", "host_syncs", "sync_wait_ns", "check_nodes",
                    "check_candidates", "check_passed",
-                   "check_overflow_passed", "check_ids_read")
+                   "check_overflow_passed", "check_ids_read", "check_syncs")
 
 
 def trace_spans(trace) -> list:
